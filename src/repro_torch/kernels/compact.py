@@ -1,0 +1,141 @@
+"""Row compactors: log compaction (paper Alg. 2) and the defrag row pass.
+
+``compact_rows`` and ``defrag_rows`` are the wrappers: on CUDA tensors
+they launch the kernel of ``csrc/compact.cu`` (port of the TPU kernels
+``compact_rows_pallas`` and ``defrag_rows_pallas``) or raise; on CPU
+tensors they run ``compact_rows_plain`` / ``defrag_rows_plain``, plain
+PyTorch versions of the same functions (translations of
+``repro.kernels.ref.compact_rows_ref`` / ``defrag_rows_ref``).
+
+Inputs are (K, D) rows — destination offsets (-1 empty), weights (0 =
+NULL tombstone, float32 or bfloat16), timestamps — with ``size`` (K,)
+the occupied prefix. Destination offsets must be below 2^30.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.tensor_ops import I32, shift_next
+from . import _build
+
+__all__ = ["compact_rows", "compact_rows_plain", "defrag_rows",
+           "defrag_rows_plain", "MAX_ROW_WIDTH"]
+
+BIGD = 2 ** 30
+MAX_ROW_WIDTH = 16384   # 12 bytes of shared memory per padded entry
+
+
+def _sorted_rows(dst, w, ts, size, read_ts=None):
+    K, D = dst.shape
+    pos = torch.arange(D, dtype=I32, device=dst.device).expand(K, D)
+    valid = (pos < size[:, None]) & (dst >= 0)
+    if read_ts is not None:
+        valid = valid & (ts <= int(read_ts))
+    dkey = torch.where(valid, dst, BIGD)
+    order = torch.argsort(dkey, dim=-1, stable=True)   # (dst asc, pos asc)
+    ds = dkey.gather(-1, order)
+    ws = w.gather(-1, order)
+    tss = ts.gather(-1, order)
+    is_last = (ds != shift_next(ds, -2)) & (ds < BIGD)
+    return order.to(I32), ds, ws, tss, is_last
+
+
+def compact_rows_plain(dst, w, ts, size, read_ts=None):
+    """Plain version: the highest occupied position per destination wins,
+    tombstones drop, survivors front-packed by DESCENDING position.
+    Returns (dst', w', ts', count)."""
+    K, D = dst.shape
+    ps, ds, ws, tss, is_last = _sorted_rows(dst, w, ts, size, read_ts)
+    keep = is_last & (ws != 0)
+    emit_key = torch.where(keep, D - ps, BIGD)
+    o3 = torch.argsort(emit_key, dim=-1, stable=True)
+    dso = torch.where(keep, ds, -1).gather(-1, o3)
+    wso = torch.where(keep, ws, torch.zeros_like(ws)).gather(-1, o3)
+    tso = torch.where(keep, tss, 0).gather(-1, o3)
+    count = keep.to(I32).sum(-1, dtype=I32)
+    return dso, wso, tso, count
+
+
+def defrag_rows_plain(dst, w, ts, size, keep_all: bool = False):
+    """Plain version: dedup as ``compact_rows_plain`` but survivors come out
+    by destination ASCENDING; ``keep_all`` keeps every occupied entry by
+    (dst, position). Returns (dst', w', ts', count, live)."""
+    K, D = dst.shape
+    _, ds, ws, tss, is_last = _sorted_rows(dst, w, ts, size)
+    live = (is_last & (ws != 0)).to(I32).sum(-1, dtype=I32)
+    keep = (ds < BIGD) if keep_all else (is_last & (ws != 0))
+    kpos = torch.cumsum(keep.to(I32), -1, dtype=I32) - 1
+    tgt = torch.where(keep, kpos, D).to(torch.int64)
+    outs = []
+    for src, fill in ((ds, -1), (ws, 0), (tss, 0)):
+        o = torch.full((K, D + 1), fill, dtype=src.dtype, device=src.device)
+        o.scatter_(-1, tgt, torch.where(keep, src, torch.full_like(src,
+                                                                   fill)))
+        outs.append(o[:, :D].contiguous())
+    count = keep.to(I32).sum(-1, dtype=I32)
+    return outs[0], outs[1], outs[2], count, live
+
+
+def _lib():
+    lib = _build.load("compact")
+    fn = lib.rows_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(mode: int, dst, w, ts, size, read_ts, keep_all: bool):
+    name = "compact_rows" if mode == 0 else "defrag_rows"
+    dev = dst.device
+    if dst.dim() != 2:
+        raise ValueError(f"{name}: rows must be 2-D, got {tuple(dst.shape)}")
+    K, D = dst.shape
+    for t, dts, shape, nm in (
+            (dst, (torch.int32,), (K, D), "dst"),
+            (w, (torch.float32, torch.bfloat16), (K, D), "w"),
+            (ts, (torch.int32,), (K, D), "ts"),
+            (size, (torch.int32,), (K,), "size")):
+        _build.check_tensor(t, dts, shape, nm, dev, name)
+    if D > MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: row width {D} > {MAX_ROW_WIDTH}")
+    odst = torch.empty((K, D), dtype=torch.int32, device=dev)
+    ow = torch.empty((K, D), dtype=w.dtype, device=dev)
+    ots = torch.empty((K, D), dtype=torch.int32, device=dev)
+    ocnt = torch.empty((K,), dtype=torch.int32, device=dev)
+    olive = torch.empty((K,), dtype=torch.int32, device=dev)
+    if K == 0 or D == 0:
+        ocnt.zero_()
+        olive.zero_()
+        return odst, ow, ots, ocnt, olive
+    rt = 0 if read_ts is None else int(read_ts)
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(mode, 0 if w.dtype == torch.float32 else 1, dst.data_ptr(),
+                w.data_ptr(), ts.data_ptr(), size.data_ptr(), K, D,
+                int(read_ts is not None), rt, int(keep_all),
+                odst.data_ptr(), ow.data_ptr(), ots.data_ptr(),
+                ocnt.data_ptr(), olive.data_ptr(), stream)
+    _build.check_rc(rc, name)
+    _build.LAUNCHES[name] += 1
+    return odst, ow, ots, ocnt, olive
+
+
+def compact_rows(dst, w, ts, size, read_ts=None):
+    """Kernel wrapper: CUDA kernel on CUDA tensors, plain version on CPU
+    tensors. ``read_ts`` (a host int) keeps only entries with ts <= it."""
+    if not dst.is_cuda:
+        return compact_rows_plain(dst, w, ts, size, read_ts)
+    return _launch(0, dst, w, ts, size, read_ts, False)[:4]
+
+
+def defrag_rows(dst, w, ts, size, keep_all: bool = False):
+    """Kernel wrapper: CUDA kernel on CUDA tensors (``keep_all`` included),
+    plain version on CPU tensors."""
+    if not dst.is_cuda:
+        return defrag_rows_plain(dst, w, ts, size, keep_all)
+    return _launch(1, dst, w, ts, size, None, keep_all)
