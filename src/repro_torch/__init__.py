@@ -5,9 +5,9 @@ The package mirrors ``repro`` module by module (``core``, ``kernels``,
 Plain tensor code is PyTorch; the edge-pool append, the row compactors and
 the SORT descent are CUDA kernels written for Hopper (``kernels/csrc``).
 
-Every entry point takes an explicit ``device``. The default is ``"cuda"``:
-without a card, constructing a store with the default raises instead of
-quietly running on the CPU. Tests pass ``device="cpu"``, and on CPU
+Every entry point and state factory takes an explicit ``device``. The
+default is ``"cuda"``: without a card, a call with the default raises
+instead of quietly building state on the CPU. Tests pass ``device="cpu"``, and on CPU
 tensors each kernel wrapper runs its plain PyTorch version.
 """
 from __future__ import annotations

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core.edgepool import EdgePool
 from .core.radixgraph import GraphState
 from .core.sort import SortState
@@ -34,7 +35,8 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32) if name in _UINT32_FIELDS else a
 
 
-def state_from_numpy(tree, device="cpu") -> GraphState:
+def state_from_numpy(tree, device="cuda") -> GraphState:
+    device = resolve_device(device)
     s, vt, pool = tree.sort, tree.vt, tree.pool
     sort = SortState(tuple(_to_torch(p, device) for p in s.pools),
                      _to_torch(s.counts, device),

@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..kernels import ops as kops
 from .tensor_ops import (I32, I64, cdiv, lexsort, nonzero_static,
                          scatter_add_, scatter_set_, shift_next, shift_prev)
@@ -90,7 +91,8 @@ class EdgePool(NamedTuple):
     tiles_scanned: torch.Tensor  # int32 scalar — touched append tiles
 
 
-def make_edge_pool(spec: PoolSpec, device="cpu") -> EdgePool:
+def make_edge_pool(spec: PoolSpec, device="cuda") -> EdgePool:
+    device = resolve_device(device)
     nb, bs = spec.n_blocks, spec.block_size
 
     def z(v=0):

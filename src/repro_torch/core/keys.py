@@ -12,13 +12,17 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 __all__ = ["pack_keys", "unpack_keys", "extract_bits", "layer_bit_offsets"]
 
 _MASK32 = 0xFFFFFFFF
 
 
-def pack_keys(ids, key_bits: int, device="cpu") -> torch.Tensor:
-    """Python/numpy ints (or uint32/uint64 array) -> (..., 2) int64 keys."""
+def pack_keys(ids, key_bits: int, device="cuda") -> torch.Tensor:
+    """Python/numpy ints (or uint32/uint64 array) -> (..., 2) int64 keys
+    on ``device``."""
+    device = resolve_device(device)
     arr = np.asarray(ids, dtype=np.uint64)
     if key_bits < 64 and int(arr.max(initial=0)) >= (1 << key_bits):
         raise ValueError("ID exceeds universe")

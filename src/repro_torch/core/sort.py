@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..kernels import ops as kops
 from .keys import extract_bits, layer_bit_offsets
 from .sort_optimizer import SortConfig, node_probability
@@ -82,7 +83,8 @@ class SortState(NamedTuple):
     overflow: torch.Tensor           # int32 scalar — node-pool exhaustion
 
 
-def make_sort(spec: SortSpec, device="cpu") -> SortState:
+def make_sort(spec: SortSpec, device="cuda") -> SortState:
+    device = resolve_device(device)
     pools = tuple(torch.full((s,), -1, dtype=I32, device=device)
                   for s in spec.pool_sizes())
     counts = torch.zeros((spec.layers,), dtype=I32, device=device)

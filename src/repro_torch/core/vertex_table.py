@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from . import sort as sort_mod
 from .sort import SortSpec, SortState
 from .tensor_ops import I32, lexsort, scatter_set_, shift_prev
@@ -33,7 +34,9 @@ class VertexTable(NamedTuple):
     overflow: torch.Tensor     # int32 scalar — table-full events
 
 
-def make_vertex_table(n_cap: int, device="cpu") -> VertexTable:
+def make_vertex_table(n_cap: int, device="cuda") -> VertexTable:
+    device = resolve_device(device)
+
     def z():
         return torch.zeros((), dtype=I32, device=device)
     return VertexTable(

@@ -7,9 +7,9 @@ both packages:
   launches the CUDA kernel on CUDA tensors (or raises) and runs the plain
   PyTorch version on CPU tensors. ``'pallas'`` names the TPU kernel the
   CUDA kernel replaces; no Pallas runs here.
-* ``'ref'`` / ``'plain'`` — the plain PyTorch version on any device (for
-  ``append_edges``, only ``'plain'``: the edge pool's ``append_impl='ref'``
-  is the windowed-probe scatter path, which never calls this function).
+* ``'ref'`` — the plain PyTorch version on any device. ``append_edges``
+  takes ``'plain'`` instead: the edge pool's ``append_impl='ref'`` is the
+  windowed-probe scatter path, which never calls this function.
 
 There is no fallback: the device of the tensors picks the implementation,
 and a kernel that fails to build or launch raises.
@@ -28,10 +28,9 @@ __all__ = ["append_edges", "compact_rows", "defrag_rows", "sort_lookup",
 
 append_tile_rows = _append.append_tile_rows
 _KERNEL = ("auto", "pallas")
-_PLAIN = ("ref", "plain")
 
 
-def _use_kernel(impl: str, allowed=_KERNEL + _PLAIN) -> bool:
+def _use_kernel(impl: str, allowed=_KERNEL + ("ref",)) -> bool:
     if impl not in allowed:
         raise ValueError(f"unknown kernel impl {impl!r}; expected one of "
                          f"{allowed}")

@@ -65,7 +65,7 @@ def test_sort_insert_delete_reinsert_parity():
     jspec = JS.SortSpec.from_config(cfg, 600, capacity_factor=0.3)
     tspec = TS.SortSpec.from_config(cfg, 600, capacity_factor=0.3)
     assert jspec.node_caps == tspec.node_caps
-    jst, tst = JS.make_sort(jspec), TS.make_sort(tspec)
+    jst, tst = JS.make_sort(jspec), TS.make_sort(tspec, "cpu")
     universe = rng.choice(2 ** 24, 700, replace=False).astype(np.uint64)
     for step in range(8):
         ids = rng.choice(universe, 128)
@@ -73,8 +73,8 @@ def test_sort_insert_delete_reinsert_parity():
         if step % 3 == 2:
             jst, joff, jfound = JS.delete_keys(jspec, jst, jpack(ids, 24),
                                                jnp.asarray(mask))
-            tst, toff, tfound = TS.delete_keys(tspec, tst, tpack(ids, 24),
-                                               _t(mask))
+            tst, toff, tfound = TS.delete_keys(
+                tspec, tst, tpack(ids, 24, "cpu"), _t(mask))
             np.testing.assert_array_equal(np.asarray(jfound), tfound.numpy())
         else:
             # duplicate keys in a batch carry identical offsets
@@ -82,8 +82,8 @@ def test_sort_insert_delete_reinsert_parity():
                 np.int32)
             jst = JS.insert_mappings(jspec, jst, jpack(ids, 24),
                                      jnp.asarray(offs), jnp.asarray(mask))
-            tst = TS.insert_mappings(tspec, tst, tpack(ids, 24), _t(offs),
-                                     _t(mask))
+            tst = TS.insert_mappings(tspec, tst, tpack(ids, 24, "cpu"),
+                                     _t(offs), _t(mask))
         for a, b in zip(jst.pools, tst.pools):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
         np.testing.assert_array_equal(np.asarray(jst.counts),
@@ -92,7 +92,7 @@ def test_sort_insert_delete_reinsert_parity():
         q = rng.choice(universe, 256)
         np.testing.assert_array_equal(
             np.asarray(JS.lookup(jspec, jst, jpack(q, 24))),
-            TS.lookup(tspec, tst, tpack(q, 24)).numpy())
+            TS.lookup(tspec, tst, tpack(q, 24, "cpu")).numpy())
     assert int(tst.overflow) > 0          # the capacity case was reached
     assert int(TS.materialized_slots(tspec, tst)) == \
         int(JS.materialized_slots(jspec, jst))
@@ -106,8 +106,9 @@ def test_vertex_table_parity_with_overflow():
     cfg = optimize_sort(n_cap, 20, 3)
     jspec = JS.SortSpec.from_config(cfg, n_cap)
     tspec = TS.SortSpec.from_config(cfg, n_cap)
-    jst, tst = JS.make_sort(jspec), TS.make_sort(tspec)
-    jvt, tvt = JV.make_vertex_table(n_cap), TV.make_vertex_table(n_cap)
+    jst, tst = JS.make_sort(jspec), TS.make_sort(tspec, "cpu")
+    jvt = JV.make_vertex_table(n_cap)
+    tvt = TV.make_vertex_table(n_cap, "cpu")
     for step in range(6):
         ids = rng.integers(0, 2 ** 20, 64).astype(np.uint64)
         ids[32:48] = ids[:16]                       # duplicates
@@ -117,13 +118,13 @@ def test_vertex_table_parity_with_overflow():
             jst, jvt, joff, jok = JV.delete_vertices(
                 jspec, jst, jvt, jpack(ids, 20), jnp.asarray(mask), ts)
             tst, tvt, toff, tok = TV.delete_vertices(
-                tspec, tst, tvt, tpack(ids, 20), _t(mask),
+                tspec, tst, tvt, tpack(ids, 20, "cpu"), _t(mask),
                 torch.tensor(7, dtype=torch.int32))
         else:
             jst, jvt, joff, jok = JV.ensure_vertices(
                 jspec, jst, jvt, jpack(ids, 20), jnp.asarray(mask))
             tst, tvt, toff, tok = TV.ensure_vertices(
-                tspec, tst, tvt, tpack(ids, 20), _t(mask))
+                tspec, tst, tvt, tpack(ids, 20, "cpu"), _t(mask))
         np.testing.assert_array_equal(np.asarray(joff), toff.numpy())
         np.testing.assert_array_equal(np.asarray(jok), tok.numpy())
         for f in jvt._fields:
@@ -249,7 +250,7 @@ def test_fold_bitmap_matches_jax():
     for op in _waves()[:5]:
         _apply(jg, op)
     spec_j, n_cap = jg.pool_spec, BASE["n_max"]
-    tstate = state_from_numpy(jax.tree.map(np.asarray, jg.state))
+    tstate = state_from_numpy(jax.tree.map(np.asarray, jg.state), "cpu")
     spec_t = TG(device="cpu", **kw).pool_spec
     ku = np.array([0, 1, 2, 5, -1], np.int32)
     kmask = ku >= 0

@@ -158,7 +158,7 @@ def test_sort_lookup_plain_matches_oracle(n):
                           fanout_bits=spec.fanout_bits,
                           bit_offsets=spec.bit_offsets)
     pools = [torch.from_numpy(np.array(p)) for p in stt.pools]
-    b = sort_lookup_plain(pools, tpack_keys(q, 32),
+    b = sort_lookup_plain(pools, tpack_keys(q, 32, "cpu"),
                           fanout_bits=spec.fanout_bits,
                           bit_offsets=spec.bit_offsets)
     _eq(a, b)

@@ -24,6 +24,10 @@ from repro.core.radixgraph import RadixGraph as JG
 from repro_torch.api import (OpBatch, ReadOp, UnsupportedOpError,
                              available_backends, make_store)
 from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.core import edgepool as TE
+from repro_torch.core import sort as TS
+from repro_torch.core import vertex_table as TV
+from repro_torch.core.keys import pack_keys as tpack_keys
 from repro_torch.core.radixgraph import RadixGraph as TG
 
 KW = dict(n_max=2048, key_bits=32, expected_n=256, batch=128,
@@ -191,10 +195,21 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_default_device_needs_a_card():
+    """The store, the facade and every state factory default to the card
+    and raise without one instead of building state on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
-    with pytest.raises(RuntimeError, match="cuda"):
-        make_store("local", n_max=64)
+    tg = TG(device="cpu", n_max=64)
+    tree = state_to_numpy(tg.state)
+    for build in (lambda: make_store("local", n_max=64),
+                  lambda: TG(n_max=64),
+                  lambda: TS.make_sort(tg.sort_spec),
+                  lambda: TV.make_vertex_table(64),
+                  lambda: TE.make_edge_pool(tg.pool_spec),
+                  lambda: tpack_keys([1, 2], 32),
+                  lambda: state_from_numpy(tree)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
 
 
 def test_later_slices_raise_and_registry():
