@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port of RadixGraph on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
+                          [--analytics-edges 2097152]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -20,8 +21,21 @@ Phases (any failure raises and the script exits non-zero):
    with CUDA events;
    then ``torch.profiler`` over a few more batches (host ops, device
    busy share) and one rebuild and one snapshot timed alone;
-5. whole-path parity at small size: the same stream with every kernel, and
-   with every impl forced to its plain version, gives identical state.
+5. analytics path, on a second store with the same LiveJournal-sized
+   state, undirected, after the first is freed: 2^21 powerlaw edges
+   (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
+   phase writes), then each of the nine registered analytics
+   once through ``store.analytics_result`` (device and host time apart),
+   checked against an independent numpy/scipy oracle; incremental
+   advances over an insert-only delta of 4096 edges, each held to a
+   scratch run; a ``GraphQueryService`` run of 64 write micro-batches
+   with degree, bfs and wcc queries, held to scratch at its last sealed
+   epoch. Launch counters are zeroed before and read after; the frontier
+   kernel must have run. Then the frontier kernel against its plain
+   version on the largest BFS level's inputs (bit-exact);
+6. whole-path parity at small size: the same stream with every kernel, and
+   with every impl forced to its plain version, gives identical state,
+   and bfs / khop give identical depths and counts.
 
 The last two lines are the ``kernels`` JSON object and the ``ok`` object.
 Nothing here imports JAX or the ``repro`` package.
@@ -52,7 +66,18 @@ TPU_KERNELS = {
                     "src/repro/kernels/compact.py:230"),
     "sort_lookup": ("src/repro_torch/kernels/csrc/sort_lookup.cu",
                     "src/repro/kernels/sort_lookup.py:66"),
+    "frontier_expand": ("src/repro_torch/kernels/csrc/frontier.cu",
+                        "src/repro/kernels/frontier.py:57"),
 }
+INGEST_KERNELS = ("append", "compact_rows", "defrag_rows", "sort_lookup")
+ANALYTICS_KERNELS = ("frontier_expand",)
+DEVICE = "cuda"
+SSSP_ITERS = 256        # Bellman-Ford stops early once nothing relaxes
+PR_TOL = 1e-7
+# an advance is held to scratch within the repo's PageRank tolerance: the
+# scratch run stops at max|dpr| < PR_TOL, up to PR_TOL d/(1-d) from the
+# fixed point, and the advance stops within PR_TOL/2 of it
+PR_ADVANCE_TOL = 1e-5
 
 
 def say(tag, **kw):
@@ -128,6 +153,42 @@ def cuda_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def next_pow2(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernel_entry(torch, name, shape, kern, plain, check, nbytes, nops):
+    """Hold a kernel against its plain version (``check`` returns both
+    outputs), time both with CUDA events, and compute the bound from the
+    bytes and operations these inputs need."""
+    out_k, out_p = check()
+    match = len(out_k) == len(out_p) and all(
+        torch.equal(x, y) for x, y in zip(out_k, out_p))
+    err = max_abs_err(out_k, out_p)   # raises when they differ
+    ms, pms = cuda_ms(kern), cuda_ms(plain, reps=5, warm=1)
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+    return dict(name=name, shape=shape, match=match, max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+                nops / F32_OPS_PER_S else "operations",
+                bytes=int(nbytes), library_ms=None)
+
+
+def kernel_line(name, row, launches):
+    src, replaces = TPU_KERNELS[name]
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=launches, match=row["match"],
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                kernel_ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], shape=row["shape"])
+
+
 def max_abs_err(xs, ys):
     import torch
     err = 0.0
@@ -150,7 +211,7 @@ def phase_build():
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import append as ka, compact as kc, \
-        sort_lookup as ks
+        frontier as kf, sort_lookup as ks
     t0 = time.perf_counter()
     secs = _build.build()
     say("build", seconds=round(time.perf_counter() - t0, 3),
@@ -194,6 +255,11 @@ def phase_build():
     wa = ka.append_edges(*a, *ops)
     wb = ka.append_edges_plain(*b, *ops)
     max_abs_err([wa, *a], [wb, *b])
+    fargs = (i32([0, 1, -1, 40]), i32([[1, 2], [3, 70], [4, 5], [6, 7]]),
+             torch.ones((4, 2), dtype=torch.bool, device=dev), i32([3, 0]),
+             i32([2, 0]))
+    max_abs_err([kf.frontier_expand(*fargs)],
+                [kf.frontier_expand_plain(*fargs)])
     torch.cuda.synchronize()
     say("build_check", ok=True)
 
@@ -321,8 +387,8 @@ def phase_main(args, torch):
         if got != exp:
             raise AssertionError(f"neighbors of {int(q[j])} disagree")
     t_oracle = time.perf_counter() - t0
-    for k, n in launches.items():
-        if n <= 0:
+    for k in INGEST_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
                                  "main path")
     n_batches = len(lat)
@@ -361,19 +427,9 @@ def phase_kernels(store, ids, sample, launches, torch):
     rng = np.random.default_rng(1)
     rows, shapes = {}, []
 
-    def record(name, shape, kern, plain, check, nbytes, nops, library=None):
-        out_k, out_p = check()
-        match = len(out_k) == len(out_p) and all(
-            torch.equal(x, y) for x, y in zip(out_k, out_p))
-        err = max_abs_err(out_k, out_p)   # raises when they differ
-        ms, pms = cuda_ms(kern), cuda_ms(plain, reps=5, warm=1)
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-        entry = dict(name=name, shape=shape, match=match,
-                     max_abs_err=err, ms=ms,
-                     plain_ms=pms, bound_ms=bound,
-                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-                     nops / F32_OPS_PER_S else "operations",
-                     bytes=int(nbytes), library_ms=library)
+    def record(name, shape, kern, plain, check, nbytes, nops):
+        entry = kernel_entry(torch, name, shape, kern, plain, check, nbytes,
+                             nops)
         shapes.append(entry)
         rows.setdefault(name, entry)
 
@@ -473,17 +529,8 @@ def phase_kernels(store, ids, sample, launches, torch):
                      "defrag_rows", defrag=True)
     torch.cuda.synchronize()
     say("kernel_shapes", card=card_line(), shapes=shapes)
-    out = []
-    for name, (src, replaces) in TPU_KERNELS.items():
-        r = rows[name]
-        out.append(dict(name=name, route="cuda", source=src,
-                        replaces=replaces, launches=launches[name],
-                        match=r["match"], max_abs_err=r["max_abs_err"],
-                        ms=r["ms"], kernel_ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=None,
-                        shape=r["shape"]))
-    return out
+    return [kernel_line(name, rows[name], launches[name])
+            for name in INGEST_KERNELS]
 
 
 def _ev_attr(e, *names):
@@ -553,6 +600,399 @@ def phase_profile(store, ids, torch, n_batches=16):
         snapshot_m=m)
 
 
+def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None,
+                  damping=0.85):
+    """float64 power iteration with the port's dangling rule: dangling
+    mass spreads uniformly over the active (present) vertices."""
+    act = np.zeros(n_vertices, bool)
+    act[present] = True
+    n_act = float(len(present))
+    deg = np.bincount(osrc, minlength=n_vertices).astype(np.float64)
+    x = np.where(act, 1.0 / n_act, 0.0)
+    it = 0
+    while it < iters:
+        contrib = np.where(deg > 0, x / np.maximum(deg, 1.0), 0.0)
+        dangling = x[act & (deg == 0)].sum()
+        inflow = np.bincount(odst, weights=contrib[osrc],
+                             minlength=n_vertices)
+        nx = np.where(act, (1 - damping) / n_act +
+                      damping * (inflow + dangling / n_act), 0.0)
+        ch = np.abs(nx - x).max()
+        x = nx
+        it += 1
+        if tol is not None and not ch >= tol:
+            break
+    return x, it
+
+
+def host_oracle_checks(n_vertices, ids, present, rows, osrc, odst, ow, hub,
+                       khop_src, results, bfs_iters):
+    """Independent answers from numpy and scipy over the same edge list
+    (never the port's code), held to the store's answers."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    t0 = time.perf_counter()
+    A = sp.csr_matrix((ow.astype(np.float64), (osrc, odst)),
+                      shape=(n_vertices, n_vertices))
+    out = {}
+
+    def raw(key):
+        return results[key].raw[rows]
+
+    hops = csgraph.shortest_path(A, method="D", unweighted=True,
+                                 indices=hub)[present]
+    want = np.where(np.isfinite(hops) & (hops <= bfs_iters), hops, -1)
+    if not np.array_equal(raw("bfs").astype(np.int64),
+                          want.astype(np.int64)):
+        raise AssertionError("bfs depths disagree with the host oracle")
+    out["bfs_reached"] = int((want >= 0).sum())
+
+    ncomp, lab = csgraph.connected_components(A, directed=True,
+                                              connection="weak")
+    minid = np.full(ncomp, np.iinfo(np.uint64).max, np.uint64)
+    np.minimum.at(minid, lab[present], ids[present])
+    if not np.array_equal(raw("wcc"), minid[lab[present]]):
+        raise AssertionError("wcc labels disagree with the host oracle")
+    out["components"] = int(np.unique(lab[present]).size)
+
+    got = results["khop"].value
+    for j, s_ in enumerate(khop_src):
+        n1 = A.indices[A.indptr[s_]:A.indptr[s_ + 1]]
+        n2 = A[n1].indices
+        if got[j] != np.unique(np.concatenate([[s_], n1, n2])).size - 1:
+            raise AssertionError(f"khop count of source {j} disagrees")
+    out["khop_max"] = int(max(got))
+
+    dist = csgraph.dijkstra(A, directed=True, indices=hub)[present]
+    d32 = raw("sssp").astype(np.float64)
+    fin = np.isfinite(dist)
+    if not np.array_equal(fin, d32 < 1e38):
+        raise AssertionError("sssp reachability disagrees with Dijkstra")
+    rel = np.abs(d32[fin] - dist[fin]) / np.maximum(dist[fin], 1e-30)
+    out["sssp_max_rel_err"] = float(rel.max()) if rel.size else 0.0
+    if out["sssp_max_rel_err"] > 1e-5:
+        raise AssertionError(f"sssp relative error {rel.max()}")
+
+    x20, _ = host_pagerank(n_vertices, present, osrc, odst, 20)
+    out["pagerank_l1"] = float(np.abs(
+        raw("pagerank").astype(np.float64) - x20[present]).sum())
+    # the tolerance run against float64 over as many iterations as the
+    # port ran (float32 atomics can keep max|dpr| above the tolerance, so
+    # the port may run to its cap where float64 stops earlier)
+    its = results["pagerank_tol"].iters
+    xt, _ = host_pagerank(n_vertices, present, osrc, odst, its)
+    out["pagerank_tol_l1"] = float(np.abs(
+        raw("pagerank_tol").astype(np.float64) - xt[present]).sum())
+    out["pagerank_tol_iters"] = its
+    out["pagerank_tol_iters_float64"] = host_pagerank(
+        n_vertices, present, osrc, odst, 100, PR_TOL)[1]
+    if max(out["pagerank_l1"], out["pagerank_tol_l1"]) > 1e-4:
+        raise AssertionError(f"pagerank L1 distance {out}")
+    out["oracle_s"] = time.perf_counter() - t0
+    return out
+
+
+def push_unbounded(inc, prev_raw, csr, params, max_rounds=200):
+    """What the refused PageRank push would have needed: the same advance
+    with no work budget (rounds capped at ``max_rounds``)."""
+    t0 = time.perf_counter()
+    out = inc.advance_pagerank(prev_raw, csr, damping=0.85,
+                               tol=float(params["tol"]),
+                               max_rounds=max_rounds,
+                               edge_work_factor=1 << 40)
+    return dict(unbounded_push_rounds=None if out is None else out[1],
+                unbounded_push_ms=(time.perf_counter() - t0) * 1e3,
+                budget_edge_pushes=32 * (csr.m + 1024))
+
+
+def phase_analytics(args, torch, n_max=2 ** 23, n_vertices=LJ_VERTICES,
+                    pool_blocks=2 ** 23, service_steps=64,
+                    delta_edges=4096):
+    """The analytics path at the LiveJournal-sized state: scratch runs of
+    every registered analytics, incremental advances, and the query
+    service. Returns the largest BFS level's frontier-kernel inputs and
+    the launch counts of this path."""
+    from repro_torch.analytics import algorithms as alg
+    from repro_torch.analytics import incremental as inc
+    from repro_torch.api import (AnalyticsOp, OpBatch, ReadOp,
+                                 analytics_spec, make_store)
+    from repro_torch.core.status import Reason
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.frontier import pack_bits
+    from repro_torch.serve import GraphQueryService
+
+    E = args.analytics_edges
+    B = 4096                # RadixGraph's default batch
+    # the CSR pad must hold every directed edge the phase writes (ingest,
+    # delta, service): a snapshot past m_cap drops edges, and the deltas
+    # of later epochs would then look like deletes
+    m_cap = next_pow2(2 * (E + delta_edges + service_steps * B))
+    rng = np.random.default_rng(args.seed + 1)
+    ids, si, di = powerlaw_stream(rng, n_vertices, E)
+    w = rng.uniform(0.5, 2.0, E).astype(np.float32)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    syncs0 = dict(alg.HOST_SYNCS)
+    card = card_line()
+
+    t0 = time.perf_counter()
+    store = make_store("local", device=DEVICE, n_max=n_max,
+                       expected_n=n_vertices, key_bits=32,
+                       pool_blocks=pool_blocks, block_size=16,
+                       undirected=True, m_cap=m_cap)
+    g = store.graph
+    assert g.batch == B
+    for lo in range(0, E, B):
+        res = store.apply(OpBatch.edges(ids[si[lo:lo + B]],
+                                        ids[di[lo:lo + B]], w[lo:lo + B]))
+        if res.dropped:
+            raise AssertionError(f"analytics ingest: {res.dropped} dropped")
+    sync(torch)
+    t_ingest = time.perf_counter() - t0
+    snap = store.read(ReadOp("snapshot"))
+    m = int(snap.m)
+    if not m < m_cap:
+        raise AssertionError(f"snapshot truncated: m {m}, m_cap {m_cap}")
+
+    # ---- host oracle inputs: both directions in op order, last writer
+    # wins per directed pair ----
+    s2 = np.empty(2 * E, np.int64)
+    d2 = np.empty(2 * E, np.int64)
+    s2[0::2], s2[1::2] = si, di
+    d2[0::2], d2[1::2] = di, si
+    osrc, odst, ow = oracle(n_vertices, s2, d2, np.repeat(w, 2))
+    if len(osrc) != m:
+        raise AssertionError(f"live edges: store {m}, oracle {len(osrc)}")
+    present = np.unique(np.concatenate([si, di]))
+    rows = g.lookup(ids[present]).astype(np.int64)
+    if (rows < 0).any():
+        raise AssertionError("a vertex of the stream is missing")
+    hub = int(np.argmax(np.bincount(osrc, minlength=n_vertices)))
+    src_id = int(ids[hub])
+    khop_src = rng.choice(present, 64, replace=False)
+    bc_src = rng.choice(present, 4, replace=False)
+    say("analytics_store", card=card, edges=E, live_edges=m, m_cap=m_cap,
+        vertices=int(len(present)), ingest_s=t_ingest,
+        ingest_updates_per_s=2 * E / t_ingest, hub_degree=int(
+            np.bincount(osrc)[hub]))
+
+    # ---- scratch: every registry entry once; device vs host time ----
+    ops_list = [("bfs", "bfs", dict(source=src_id)),
+                ("sssp", "sssp", dict(source=src_id, max_iters=SSSP_ITERS)),
+                ("pagerank", "pagerank", dict(iters=20)),
+                ("pagerank_tol", "pagerank", dict(iters=20, tol=PR_TOL)),
+                ("wcc", "wcc", {}),
+                ("khop", "khop", dict(sources=ids[khop_src], k=2)),
+                ("bc", "bc", dict(sources=ids[bc_src])),
+                ("triangle_count", "triangle_count", {}),
+                ("degree_map", "degree_map", {}),
+                ("num_edges", "num_edges", {})]
+    results, timing, bfs_depth = {}, [], None
+    for key, name, params in ops_list:
+        spec = analytics_spec(name)
+        p = dict(params)
+        dyn, _, _ = store._resolve_dyn(spec, g.state, p)
+        dargs = [a[0] if isinstance(a, tuple) else a for a in dyn]
+        s0 = dict(alg.HOST_SYNCS)
+        sync(torch)
+        t0 = time.perf_counter()
+        out = spec.single(snap, *dargs, **p)
+        sync(torch)
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        syncs = sum(alg.HOST_SYNCS[k] - s0[k] for k in s0)
+        if key == "bfs":
+            bfs_depth, bfs_syncs = out, syncs
+        t0 = time.perf_counter()
+        results[key] = store.analytics_result(AnalyticsOp(name, params))
+        sync(torch)
+        store_ms = (time.perf_counter() - t0) * 1e3
+        timing.append(dict(op=key, device_ms=dev_ms, store_ms=store_ms,
+                           host_ms=store_ms - dev_ms,
+                           iters=results[key].iters, host_syncs=syncs))
+    levels = int(bfs_depth.max())
+    say("analytics_scratch", card=card, ops=timing,
+        bfs_levels=levels, bfs_host_syncs=bfs_syncs,
+        bfs_host_syncs_per_level=bfs_syncs / (levels + 1),
+        triangles=results["triangle_count"].value,
+        num_edges=results["num_edges"].value)
+
+    # eager launches of one triangle_count (a 256 x 32 loop of small ops)
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        alg.triangle_count(snap)
+        sync(torch)
+    ka = prof.key_averages()
+    say("triangle_count_launches", card=card,
+        cuda_launches=sum(e.count for e in ka if e.key.startswith(
+            "cudaLaunchKernel")),
+        aten_ops=sum(e.count for e in ka if e.key.startswith("aten::")))
+
+    checks = host_oracle_checks(n_vertices, ids, present, rows, osrc, odst,
+                                ow, hub, khop_src, results, bfs_iters=32)
+    say("analytics_oracle", card=card, oracle="agrees", **checks)
+
+    # ---- the largest BFS level, as the frontier kernel saw it ----
+    lv = int(np.argmax(np.bincount(bfs_depth[bfs_depth >= 0].cpu()
+                                   .numpy())))
+    n = snap.indptr.shape[0] - 1
+    W = (n + 31) // 32
+    view = alg._frontier_view(snap, alg.csr_edges(snap))
+    level = view + (pack_bits(bfs_depth == lv, W),
+                    pack_bits((bfs_depth >= 0) & (bfs_depth <= lv), W),
+                    lv, int((bfs_depth == lv).sum()))
+
+    # ---- incremental advances over an insert-only delta ----
+    inc_ops = [("bfs", dict(source=src_id)),
+               ("sssp", dict(source=src_id, max_iters=SSSP_ITERS)),
+               ("wcc", {}), ("pagerank", dict(tol=PR_TOL))]
+    e0 = store.capture()
+    warm = {name: store.analytics_result(AnalyticsOp(name, params), e0)
+            for name, params in inc_ops}
+    _, dsi, ddi = powerlaw_stream(rng, n_vertices, delta_edges, ids)
+    # lighter than every base weight: an update never raises a weight
+    dw = rng.uniform(0.1, 0.5, delta_edges).astype(np.float32)
+    store.apply(OpBatch.edges(ids[dsi], ids[ddi], dw))
+    e1 = store.capture()
+    t0 = time.perf_counter()
+    delta, reason = store._delta(e0, e1)
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    if delta is None:
+        raise AssertionError(f"delta refused: {reason}")
+    adv = []
+    for name, params in inc_ops:
+        op = AnalyticsOp(name, params)
+        t0 = time.perf_counter()
+        ri = store.analytics_advance(op, warm[name], e1)
+        sync(torch)
+        adv_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rs = store.analytics_result(op, e1)
+        sync(torch)
+        scr_ms = (time.perf_counter() - t0) * 1e3
+        # PageRank's push may exhaust the reference's work budget (32 m
+        # edge pushes) on a graph this size: that refusal is the
+        # reference's answer, and the result is then the scratch run
+        refused = name == "pagerank" and ri.mode == "scratch" and \
+            ri.reason == Reason.ADVANCE_REFUSED
+        if ri.mode != "incremental" and not refused:
+            raise AssertionError(f"{name} advance fell back: {ri.reason}")
+        err = float(np.abs(ri.raw.astype(np.float64) -
+                           rs.raw.astype(np.float64)).max())
+        if err > (PR_ADVANCE_TOL if name == "pagerank" else 0.0):
+            raise AssertionError(f"{name} advance differs from scratch by "
+                                 f"{err}")
+        adv.append(dict(op=name, mode=ri.mode, reason=str(ri.reason),
+                        advance_ms=adv_ms, scratch_ms=scr_ms,
+                        advance_iters=ri.iters, scratch_iters=rs.iters,
+                        max_abs_diff=err))
+        if refused:
+            adv[-1].update(push_unbounded(inc, warm[name].raw,
+                                          store._csr(e1), params))
+    say("analytics_advance", card=card, delta_edges=delta_edges,
+        delta_changed=delta.n_changed, touched_rows=int(
+            delta.touched_rows.size), extract_ms=delta_ms, ops=adv)
+    del warm, e0, e1
+
+    # ---- the query service: writes stream in, reads on sealed epochs ----
+    # a step's read budget holds one 4096-ID degree read and one cold
+    # analytics run; a second analytics run waits for the next step
+    svc = GraphQueryService(store, incremental=True, query_batch=2 * 4096)
+    reasons = {}
+    advance = store.analytics_advance
+
+    def tally(op, prev, at):        # why each service answer took its path
+        r = advance(op, prev, at)
+        k = f"{op.name}:{r.mode}:{r.reason}"
+        reasons[k] = reasons.get(k, 0) + 1
+        return r
+    store.analytics_advance = tally
+    _, vsi, vdi = powerlaw_stream(rng, n_vertices, service_steps * B, ids)
+    vw = rng.uniform(0.5, 2.0, service_steps * B).astype(np.float32)
+    qids = ids[rng.choice(present, 4096, replace=False)]
+    lat = []
+    t_start = time.perf_counter()
+    for step in range(service_steps):
+        sl = slice(step * B, (step + 1) * B)
+        if not svc.submit_update(ids[vsi[sl]], ids[vdi[sl]], vw[sl]):
+            raise AssertionError("service refused a write (backpressure)")
+        svc.submit_query("degree", ids=qids)
+        if step % 8 == 7:
+            svc.submit_query("bfs", source=src_id)
+            svc.submit_query("wcc")
+        t0 = time.perf_counter()
+        svc.step()
+        sync(torch)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    if svc.pending_writes:
+        raise AssertionError("service left writes queued")
+    sealed = svc._sealed
+    tb = svc.submit_query("bfs", source=src_id)
+    tw = svc.submit_query("wcc")
+    td = svc.submit_query("degree", ids=qids)
+    svc.run()               # no writes left: every read sees ``sealed``
+    stats = svc.stats
+    for t, name, params in ((tb, "bfs", dict(source=src_id, max_iters=32)),
+                            (tw, "wcc", {})):
+        want = store.analytics_result(AnalyticsOp(name, params), sealed)
+        if svc.results[t] != want.value:
+            raise AssertionError(f"service {name} differs from scratch at "
+                                 "its last sealed epoch")
+    if not np.array_equal(svc.results[td], store.read(
+            ReadOp("degree", ids=qids), at=sealed)):
+        raise AssertionError("service degrees differ at the sealed epoch")
+    m_end = int(store.read(ReadOp("snapshot"), at=sealed).m)
+    if not m_end < m_cap:
+        raise AssertionError(f"snapshot truncated: m {m_end}, m_cap {m_cap}")
+    if not stats["analytics_incremental"]:
+        raise AssertionError(f"no service answer advanced: {reasons}")
+    sync(torch)
+    launches = kops.launch_counts()
+    for k in ANALYTICS_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 "analytics path")
+    say("analytics_service", card=card, steps=service_steps,
+        write_ops=service_steps * B, ops_per_s=service_steps * B / wall,
+        step_p50_ms=float(np.percentile(lat, 50)),
+        step_p99_ms=float(np.percentile(lat, 99)),
+        analytics_incremental=stats["analytics_incremental"],
+        analytics_scratch=stats["analytics_scratch"],
+        epochs_sealed=stats["epochs_sealed"],
+        retained_epochs=stats["retained_epochs"], defrags=stats["defrags"],
+        live_edges=m_end, paths=reasons,
+        answers="equal scratch at the last sealed epoch")
+    say("analytics_path", card=card, launches=launches,
+        host_syncs={k: alg.HOST_SYNCS[k] - syncs0[k] for k in syncs0},
+        peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                           if DEVICE == "cuda" else None))
+    return level, launches
+
+
+def phase_frontier_kernel(level, launches, torch):
+    """The frontier kernel against its plain version on the largest BFS
+    level of the analytics phase, at its (m_cap, 1) CSR view."""
+    from repro_torch.kernels import frontier as kf
+    owner, dst, valid, fb, vb, lv, size = level
+    NB, BS = dst.shape
+    W = fb.shape[0]
+    args_ = (owner, dst, valid, fb, vb)
+    nbytes = NB * 4 + NB * BS * 5 + 3 * W * 4
+    row = kernel_entry(torch, "frontier_expand", [NB, BS, W],
+                       lambda: kf.frontier_expand(*args_),
+                       lambda: kf.frontier_expand_plain(*args_),
+                       lambda: ([kf.frontier_expand(*args_)],
+                                [kf.frontier_expand_plain(*args_)]),
+                       nbytes, NB * BS)
+    say("frontier_kernel", card=card_line(), bfs_level=lv,
+        frontier_vertices=size, launches=launches["frontier_expand"],
+        **row)
+    return kernel_line("frontier_expand", row, launches["frontier_expand"])
+
+
 def phase_parity(torch):
     """The same small stream through every kernel and through every plain
     version: identical state, leaf for leaf."""
@@ -566,7 +1006,8 @@ def phase_parity(torch):
     base = dict(n_max=8192, expected_n=3000, key_bits=32, pool_blocks=16384,
                 block_size=16, batch=1024, dmax=512, k_max=32, k_big=4,
                 probe_width=64, device="cuda")
-    states, counts, reads = [], [], []
+    from repro_torch.analytics import bfs, khop
+    states, counts, reads, walks = [], [], [], []
     for impl in ({}, dict(append_impl="plain", compact_impl="ref",
                           lookup_impl="ref")):
         kops.reset_launch_counts()
@@ -577,6 +1018,12 @@ def phase_parity(torch):
                                   w[lo:lo + 10_000]))
         s.graph.defrag()
         s.apply(OpBatch.edges(ids[si[:3000]], ids[di[:3000]], w[:3000]))
+        torch.cuda.synchronize()
+        snap = s.read(ReadOp("snapshot"))
+        srcs = torch.from_numpy(s.graph.lookup(ids[:16])).to(s.graph.device)
+        walk = "ref" if impl else "auto"
+        walks.append((bfs(snap, int(srcs[0]), impl=walk),
+                      khop(snap, srcs, k=2, impl=walk)))
         torch.cuda.synchronize()
         states.append(s.graph.state)
         counts.append(kops.launch_counts())
@@ -590,9 +1037,15 @@ def phase_parity(torch):
     for (ia, wa), (ib, wb) in zip(*reads):
         if not (np.array_equal(ia, ib) and np.array_equal(wa, wb)):
             raise AssertionError("kernel path and plain path reads differ")
+    for a, b in zip(*walks):
+        if not torch.equal(a, b):
+            raise AssertionError("bfs / khop through the frontier kernel "
+                                 "and its plain version differ")
     if min(counts[0].values()) <= 0 or max(counts[1].values()) != 0:
         raise AssertionError(f"launch counts {counts}")
     say("parity", identical=True, leaves=len(la),
+        bfs_reached=int((walks[0][0] >= 0).sum()),
+        khop_counts=walks[0][1].tolist(),
         defrags=int(states[0].pool.defrags), kernel_launches=counts[0],
         plain_launches=counts[1])
 
@@ -602,6 +1055,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ingest-ops", type=int, default=1 << 22)
     ap.add_argument("--mixed-ops", type=int, default=1 << 20)
+    ap.add_argument("--analytics-edges", type=int, default=1 << 21,
+                    help="undirected edges ingested before the analytics")
     args = ap.parse_args(argv)
 
     print(card_line(), flush=True)
@@ -612,8 +1067,10 @@ def main(argv=None):
     say("env", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
-    if args.ingest_ops < (1 << 22) or args.mixed_ops < (1 << 20):
-        say("reduced", ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops)
+    if args.ingest_ops < (1 << 22) or args.mixed_ops < (1 << 20) or \
+            args.analytics_edges < (1 << 21):
+        say("reduced", ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops,
+            analytics_edges=args.analytics_edges)
 
     t0 = time.perf_counter()
     phase_build()
@@ -622,6 +1079,10 @@ def main(argv=None):
     phase_profile(store, ids, torch)
     del store
     torch.cuda.empty_cache()
+    level, alaunches = phase_analytics(args, torch)
+    torch.cuda.empty_cache()
+    kernels.append(phase_frontier_kernel(level, alaunches, torch))
+    del level
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)

@@ -4,10 +4,12 @@ single-shard ``RadixGraph`` (port of the ``LocalStore`` half of
 
 Epochs: ``capture()`` returns an O(1) handle to the current state and pins
 it, so the next apply copies instead of updating it in place; every read
-accepts ``at=handle`` to answer against that version.
+and analytics call accepts ``at=handle`` to answer against that version.
+Analytics run on the store's device; ``analytics_advance`` moves a cached
+result across epochs over the epoch delta on the host.
 
-Analytics, incremental analytics and durability are later slices of the
-port: those methods raise ``UnsupportedOpError`` naming the slice.
+Durability is a later slice of the port: those methods raise
+``UnsupportedOpError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -15,11 +17,17 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
+from ..core import epoch_delta as ed
 from ..core import radixgraph as rg
 from ..core import vertex_table as vt_mod
+from ..core.keys import unpack_keys
 from ..core.radixgraph import RadixGraph
-from .ir import ApplyResult, OpBatch, ReadOp, UnsupportedOpError
+from ..core.status import Reason
+from .ir import (AnalyticsOp, AnalyticsResult, ApplyResult, OpBatch, ReadOp,
+                 UnsupportedOpError)
+from .registry import AnalyticsSpec, analytics_spec
 
 __all__ = ["GraphStore", "Epoch", "LocalStore", "make_store",
            "register_backend", "available_backends"]
@@ -43,8 +51,19 @@ class GraphStore(Protocol):
 
     def apply(self, batch: OpBatch) -> ApplyResult: ...
     def read(self, op: ReadOp, at: Optional[Epoch] = None) -> Any: ...
+    def analytics(self, op: AnalyticsOp,
+                  at: Optional[Epoch] = None) -> Any: ...
     def capture(self) -> Epoch: ...
     def clock(self, at: Optional[Epoch] = None) -> int: ...
+
+
+def _stale_gen(prev_handle: Optional[Epoch], at: Optional[Epoch],
+               gen: int) -> bool:
+    """True when either epoch handle predates the store's last
+    ``restore()`` — ``capture`` stamps handles with the restore
+    generation, so a warm chain can never silently span a restore."""
+    return any(ep is not None and ep.cache.get("gen", 0) != gen
+               for ep in (prev_handle, at))
 
 
 def _later_slice(what: str, slice_name: str):
@@ -56,17 +75,25 @@ class LocalStore:
     """Single-shard backend: the eager ``RadixGraph`` behind the IR.
 
     Constructor kwargs are ``RadixGraph``'s (``device`` included, default
-    ``'cuda'``) plus ``m_cap``, the CSR pad of snapshots. The graph stays
-    reachable as ``.graph``."""
+    ``'cuda'``) plus ``m_cap``, the CSR pad of snapshots and analytics
+    (analytics cost scales with it, so callers pass a tight bound), and
+    ``max_delta_frac``, the largest delta (changed pairs over live edges)
+    an advance takes before it recomputes. The graph stays reachable as
+    ``.graph``."""
 
     backend = "local"
     supported_ops = frozenset(("edges", "add_vertices", "delete_vertices"))
 
-    def __init__(self, m_cap: Optional[int] = None, **graph_kwargs):
+    def __init__(self, m_cap: Optional[int] = None,
+                 max_delta_frac: float = 0.1, **graph_kwargs):
         self.graph = RadixGraph(**graph_kwargs)
         self.n_shards = 1
         self.m_cap = m_cap or self.graph.pool_spec.capacity_entries
+        self.max_delta_frac = max_delta_frac
         self._seq = 0
+        # bumped by every restore() (the durability slice): epoch handles
+        # captured before it are no longer delta-safe
+        self._restore_gen = 0
         self.stats = dict(ops_applied=0, ops_dropped=0, defrags=0,
                           defrag_ms=0.0, defrag_host_ms=0.0,
                           defrag_sync_ms=0.0, tiles_scanned=0,
@@ -106,7 +133,8 @@ class LocalStore:
     # ---- epochs ----
     def capture(self) -> Epoch:
         self.graph.pin_live_state()
-        return Epoch(self.graph.state, self._seq)
+        return Epoch(self.graph.state, self._seq,
+                     cache={"gen": self._restore_gen})
 
     def clock(self, at: Optional[Epoch] = None) -> int:
         state = at.state if at is not None else self.graph.state
@@ -160,6 +188,139 @@ class LocalStore:
             return self._snap(at)
         raise ValueError(op.kind)
 
+    # ---- analytics ----
+    def _resolve_dyn(self, spec: AnalyticsSpec, state, params: dict):
+        """Pop dyn params and resolve IDs -> row offsets. Returns
+        ``(dyn, dyn_rows, absent_source)``; ``dyn_rows`` carries the host
+        ints the advance phases take."""
+        g = self.graph
+        look = lambda s, k: rg.step_lookup(  # noqa: E731
+            g.sort_spec, g.pool_spec, s, k)
+        dev = g.device
+        dyn, dyn_rows, absent_source = [], [], False
+        for pname, kind in spec.dyn:
+            v = params.pop(pname)
+            if kind == "id":
+                off = self._per_key(state, np.asarray([v], np.uint64),
+                                    look)[0]
+                if off < 0:
+                    absent_source = True
+                dyn_rows.append(max(int(off), 0))
+                dyn.append(max(int(off), 0))
+            else:
+                off = self._per_key(state, np.asarray(v, np.uint64), look)
+                if spec.result == "per_query":
+                    dyn.append((torch.from_numpy(np.clip(off, 0, None)).to(
+                        dev), off))
+                else:
+                    # per-vertex source sets (BC): absent sources
+                    # contribute nothing — drop them, like the mesh loop
+                    dyn.append(torch.from_numpy(off[off >= 0]).to(dev))
+        return dyn, dyn_rows, absent_source
+
+    def _per_vertex_value(self, raw: np.ndarray, snap) -> dict:
+        """``{vertex ID: value}`` over every live row, built on the host
+        (one dict entry per live vertex, as in the JAX package)."""
+        active = snap.active.cpu().numpy()
+        vids = unpack_keys(snap.ids)
+        return dict(zip(vids[active].tolist(), raw[active].tolist()))
+
+    def analytics(self, op: AnalyticsOp, at: Optional[Epoch] = None):
+        return self.analytics_result(op, at).value
+
+    def analytics_result(self, op: AnalyticsOp, at: Optional[Epoch] = None,
+                         _reason: str = "") -> AnalyticsResult:
+        """From-scratch run on the store's device, answered as an
+        ``AnalyticsResult`` whose ``raw`` per-row values seed a later
+        ``analytics_advance``."""
+        spec = analytics_spec(op.name)
+        state = self._state(at)
+        snap = self._snap(at)
+        params = dict(op.params)
+        dyn, _rows, absent_source = self._resolve_dyn(spec, state, params)
+        n_cap = snap.indptr.shape[0] - 1
+        iters = 0
+        if absent_source:
+            vals = np.full((n_cap,), spec.absent)
+        else:
+            args = [a[0] if isinstance(a, tuple) else a for a in dyn]
+            vals = spec.single(snap, *args, **params)
+            if isinstance(vals, tuple):      # convergence entries: (v, it)
+                vals, iters = vals[0], int(vals[1])
+            vals = vals.cpu().numpy()
+        seq = at.seq if at is not None else self._seq
+        if spec.result == "scalar":
+            v = np.asarray(vals).item()
+            return AnalyticsResult(v, seq, "scratch", iters, _reason, v, at)
+        if spec.result == "per_query":
+            out = np.asarray(vals).copy()
+            for a in dyn:
+                if isinstance(a, tuple):
+                    out[np.asarray(a[1]) < 0] = 0   # absent queries -> 0
+            return AnalyticsResult(out, seq, "scratch", iters, _reason,
+                                   None, at)
+        if spec.canonical_single is not None:
+            vals = spec.canonical_single(vals, snap)
+        raw = np.asarray(vals)
+        return AnalyticsResult(self._per_vertex_value(raw, snap), seq,
+                               "scratch", iters, _reason, raw, at)
+
+    def _csr(self, at: Epoch) -> ed.HostCsr:
+        h = at.cache.get("hcsr")
+        if h is None:
+            h = at.cache["hcsr"] = ed.host_csr(self._snap(at))
+        return h
+
+    def _delta(self, prev: Epoch, cur: Epoch):
+        key = ("delta", prev.seq)
+        hit = cur.cache.get(key)
+        if hit is None:     # shared across every analytic chained E->E'
+            hit = cur.cache[key] = ed.extract_delta(
+                prev.state, cur.state, self._csr(prev), self._csr(cur))
+        return hit
+
+    def analytics_advance(self, op: AnalyticsOp, prev: AnalyticsResult,
+                          at: Optional[Epoch]) -> AnalyticsResult:
+        """Advance ``prev`` to epoch ``at`` over the delta, falling back
+        to ``analytics_result`` (with the reason recorded) whenever the
+        window or the algorithm refuses — callers always get the exact
+        answer, ``mode`` just says how it was produced."""
+        spec = analytics_spec(op.name)
+        if at is None or prev is None:
+            return self.analytics_result(op, at, _reason=Reason.NO_WARM)
+        if _stale_gen(prev.handle, at, self._restore_gen):
+            return self.analytics_result(op, at,
+                                         _reason=Reason.RESTORE_BOUNDARY)
+        if prev.epoch == at.seq:
+            return prev
+        if (spec.advance is None or spec.result == "per_query"
+                or prev.handle is None or prev.raw is None):
+            return self.analytics_result(op, at, _reason=Reason.NO_WARM)
+        delta, reason = self._delta(prev.handle, at)
+        if delta is None:
+            return self.analytics_result(op, at, _reason=reason)
+        if delta.n_changed > self.max_delta_frac * max(delta.m_cur, 1):
+            return self.analytics_result(op, at,
+                                         _reason=Reason.DELTA_TOO_LARGE)
+        snap = self._snap(at)
+        params = dict(op.params)
+        _dyn, rows, absent = self._resolve_dyn(spec, at.state, params)
+        if absent:
+            return self.analytics_result(op, at,
+                                         _reason=Reason.ABSENT_SOURCE)
+        out = spec.advance(prev.raw, delta, self._csr(prev.handle),
+                           self._csr(at), tuple(rows), params)
+        if out is None:
+            return self.analytics_result(op, at,
+                                         _reason=Reason.ADVANCE_REFUSED)
+        raw, iters = out
+        if spec.result == "scalar":
+            return AnalyticsResult(int(raw), at.seq, "incremental",
+                                   int(iters), "", int(raw), at)
+        raw = np.asarray(raw)
+        return AnalyticsResult(self._per_vertex_value(raw, snap), at.seq,
+                               "incremental", int(iters), "", raw, at)
+
     # ---- epoch retention (MVCC pins) ----
     def pin_epoch(self, at: Epoch):
         self.graph.retain_version(at.state, -(1 + at.seq))
@@ -172,15 +333,6 @@ class LocalStore:
         return sum(1 for lab, _, _ in self.graph._versions if lab < 0)
 
     # ---- later slices of the port ----
-    def analytics(self, op, at: Optional[Epoch] = None):
-        _later_slice("analytics", "analytics")
-
-    def analytics_result(self, op, at: Optional[Epoch] = None):
-        _later_slice("analytics", "analytics")
-
-    def analytics_advance(self, op, prev, at: Optional[Epoch]):
-        _later_slice("analytics_advance", "analytics")
-
     def durable_state(self):
         _later_slice("durable_state", "durability")
 

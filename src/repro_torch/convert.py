@@ -6,6 +6,8 @@ state)`` has this form — and builds the port's ``GraphState`` on
 ``device``. uint32 leaves (vertex IDs) become int64; every other leaf
 keeps its dtype. ``state_to_numpy`` maps back, with the JAX package's
 dtypes. Fields are matched by name, so the port never sees a JAX object.
+``snapshot_from_numpy`` / ``snapshot_to_numpy`` do the same for a CSR
+``GraphSnapshot``.
 """
 from __future__ import annotations
 
@@ -14,11 +16,12 @@ import torch
 
 from . import resolve_device
 from .core.edgepool import EdgePool
-from .core.radixgraph import GraphState
+from .core.radixgraph import GraphSnapshot, GraphState
 from .core.sort import SortState
 from .core.vertex_table import VertexTable
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy", "snapshot_from_numpy",
+           "snapshot_to_numpy"]
 
 _UINT32_FIELDS = ("ids",)
 
@@ -58,3 +61,19 @@ def state_to_numpy(state: GraphState) -> GraphState:
     pool = EdgePool(**{f: _to_numpy(f, getattr(state.pool, f))
                        for f in EdgePool._fields})
     return GraphState(sort, vt, pool)
+
+
+def snapshot_from_numpy(tree, device="cuda") -> GraphSnapshot:
+    """A ``GraphSnapshot``-shaped tree of numpy arrays (the JAX package's
+    snapshot after ``jax.tree.map(np.asarray, snap)``) as the port's
+    ``GraphSnapshot`` on ``device``."""
+    device = resolve_device(device)
+    return GraphSnapshot(**{f: _to_torch(getattr(tree, f), device)
+                            for f in GraphSnapshot._fields})
+
+
+def snapshot_to_numpy(snap: GraphSnapshot) -> GraphSnapshot:
+    """The port's snapshot as a ``GraphSnapshot`` of numpy arrays (JAX
+    dtypes)."""
+    return GraphSnapshot(**{f: _to_numpy(f, getattr(snap, f))
+                            for f in GraphSnapshot._fields})

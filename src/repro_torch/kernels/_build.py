@@ -26,12 +26,13 @@ __all__ = ["SOURCES", "LAUNCHES", "build_dir", "build", "load", "check_rc",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = {"append": "append.cu", "compact": "compact.cu",
-           "sort_lookup": "sort_lookup.cu"}
+           "sort_lookup": "sort_lookup.cu", "frontier": "frontier.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"append": 0, "compact_rows": 0,
-                            "defrag_rows": 0, "sort_lookup": 0}
+                            "defrag_rows": 0, "sort_lookup": 0,
+                            "frontier_expand": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

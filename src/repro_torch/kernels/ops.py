@@ -21,10 +21,11 @@ from typing import Dict
 from . import _build
 from . import append as _append
 from . import compact as _compact
+from . import frontier as _frontier
 from . import sort_lookup as _sort_lookup
 
 __all__ = ["append_edges", "compact_rows", "defrag_rows", "sort_lookup",
-           "append_tile_rows", "launch_counts", "reset_launch_counts"]
+           "frontier_expand", "append_tile_rows", "launch_counts", "reset_launch_counts"]
 
 append_tile_rows = _append.append_tile_rows
 _KERNEL = ("auto", "pallas")
@@ -67,6 +68,14 @@ def sort_lookup(pools, keys, *, fanout_bits, bit_offsets,
     fn = _sort_lookup.sort_lookup if _use_kernel(impl) \
         else _sort_lookup.sort_lookup_plain
     return fn(pools, keys, fanout_bits=fanout_bits, bit_offsets=bit_offsets)
+
+
+def frontier_expand(owner, dst, valid, frontier_bits, visited_bits,
+                    impl: str = "auto"):
+    """One BFS level on int32 bitmap words: next-frontier minus visited."""
+    fn = _frontier.frontier_expand if _use_kernel(impl) \
+        else _frontier.frontier_expand_plain
+    return fn(owner, dst, valid, frontier_bits, visited_bits)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -19,6 +19,8 @@ from repro_torch.core.sort_optimizer import optimize_sort
 from repro_torch.kernels.append import append_edges, append_edges_plain
 from repro_torch.kernels.compact import (compact_rows, compact_rows_plain,
                                          defrag_rows, defrag_rows_plain)
+from repro_torch.kernels.frontier import (frontier_expand,
+                                          frontier_expand_plain)
 from repro_torch.kernels.sort_lookup import sort_lookup, sort_lookup_plain
 
 
@@ -130,3 +132,74 @@ def test_sort_lookup_kernel_on_card(cuda_device):
                           bit_offsets=spec.bit_offsets)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _frontier_inputs(seed, NB, BS, W, owner_hi=None, dst_hi=None):
+    """Random blocks and bitmaps; ids reach past the bitmap and below 0
+    (the oracle clips the owner, drops the dst)."""
+    rng = np.random.default_rng(seed)
+    n = 32 * W
+    owner = rng.integers(-1, owner_hi or n + 8, NB).astype(np.int32)
+    dst = rng.integers(-1, dst_hi or n + 8, (NB, BS)).astype(np.int32)
+    valid = rng.random((NB, BS)) < 0.5
+    f = rng.integers(0, 2 ** 32, W, dtype=np.uint32).view(np.int32)
+    v = rng.integers(0, 2 ** 32, W, dtype=np.uint32).view(np.int32)
+    return owner, dst, valid, f, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NB,BS,W", [(32, 8, 4), (1000, 16, 64),
+                                     (1 << 22, 1, 1 << 18)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_frontier_kernel_on_card(cuda_device, NB, BS, W, seed):
+    """The sweep shape of tests/test_kernels.py, a pool-like shape, and
+    the analytics path's CSR view at n_cap = 2^23 (W = 2^18)."""
+    args = _cuda(_t(*_frontier_inputs(seed, NB, BS, W)), cuda_device)
+    a = frontier_expand(*args)
+    b = frontier_expand_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_frontier_kernel_hub_destinations_on_card(cuda_device):
+    """Every entry ORs into a handful of words: atomic contention must not
+    lose a bit."""
+    NB, W = 1 << 16, 64
+    rng = np.random.default_rng(7)
+    owner = np.zeros(NB, np.int32)
+    dst = rng.integers(0, 64, (NB, 1)).astype(np.int32)
+    valid = np.ones((NB, 1), bool)
+    f = np.full(W, -1, np.int32)
+    v = np.zeros(W, np.int32)
+    args = _cuda(_t(owner, dst, valid, f, v), cuda_device)
+    a = frontier_expand(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, frontier_expand_plain(*args))
+    assert a[:2].tolist() == [-1, -1] and not a[2:].any()
+
+
+@pytest.mark.cuda
+def test_bfs_and_khop_kernel_vs_plain_on_card(cuda_device):
+    """bfs and khop give the same depths and counts through the frontier
+    kernel and through its plain version, on a card-resident store."""
+    from repro_torch.analytics import bfs, khop
+    from repro_torch.api import OpBatch, ReadOp, make_store
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    ids = rng.choice(2 ** 32, 2000, replace=False).astype(np.uint64)
+    s = ids[rng.integers(0, 2000, 20000)]
+    d = ids[rng.integers(0, 2000, 20000)]
+    store = make_store("local", device=cuda_device, n_max=4096,
+                       expected_n=2000, pool_blocks=8192, block_size=16,
+                       batch=1024, undirected=True, m_cap=1 << 16)
+    store.apply(OpBatch.edges(s, d))
+    snap = store.read(ReadOp("snapshot"))
+    src = int(store.graph.lookup(ids[:1])[0])
+    before = ops.launch_counts()["frontier_expand"]
+    a = bfs(snap, src)
+    srcs = torch.from_numpy(store.graph.lookup(ids[:8])).to(cuda_device)
+    ka = khop(snap, srcs, k=2)
+    assert ops.launch_counts()["frontier_expand"] > before
+    assert torch.equal(a, bfs(snap, src, impl="ref"))
+    assert torch.equal(ka, khop(snap, srcs, k=2, impl="ref"))

@@ -4,7 +4,9 @@ Inputs are made from a seed with numpy and handed to both sides. The
 plain PyTorch versions (what the wrappers run on CPU tensors) are held to
 the jnp oracles of ``repro.kernels.ref`` over the sweeps of
 ``tests/test_kernels.py``. Every compared output is an integer or a copied
-float, so the tolerance is bit-exact (atol = 0).
+float, so the tolerance is bit-exact (atol = 0). Frontier bitmaps cross
+as JAX uint32 words and port int32 words with the same bits
+(``np.ndarray.view``).
 
 The CUDA kernels themselves are held to these plain versions on the card
 by ``tests/test_torch_cuda.py``.
@@ -24,6 +26,9 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.append import append_edges, append_edges_plain
 from repro_torch.kernels.compact import (compact_rows, compact_rows_plain,
                                          defrag_rows, defrag_rows_plain)
+from repro_torch.kernels.frontier import (frontier_expand,
+                                          frontier_expand_plain, pack_bits,
+                                          unpack_bits)
 from repro_torch.kernels.sort_lookup import sort_lookup_plain
 
 
@@ -184,3 +189,128 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     assert tops.launch_counts() == before   # no kernel launched on the CPU
     with pytest.raises(ValueError):
         tops.compact_rows(td, tw, tt, tz, impl="bogus")
+
+
+# ---- frontier: bitmaps cross as JAX uint32 <-> port int32, same bits ----
+
+def _frontier_inputs(seed, NB=32, BS=8, n=128, lo=-1, hi=None):
+    rng = np.random.default_rng(seed)
+    W = n // 32
+    hi = n if hi is None else hi
+    owner = rng.integers(lo, hi, NB).astype(np.int32)
+    dst = rng.integers(lo, hi, (NB, BS)).astype(np.int32)
+    valid = rng.random((NB, BS)) < 0.5
+    f = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+    v = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+    return owner, dst, valid, f, v
+
+
+def _frontier_both(owner, dst, valid, f, v):
+    a = R.frontier_ref(*map(jnp.asarray, (owner, dst, valid, f, v)))
+    b = frontier_expand_plain(*_t(owner, dst, valid, f.view(np.int32),
+                                  v.view(np.int32)))
+    assert b.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(a), b.numpy().view(np.uint32))
+    return b
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_frontier_plain_matches_oracle(seed):
+    """The sweep of tests/test_kernels.py: NB 32, BS 8, n 128, random
+    bitmaps."""
+    _frontier_both(*_frontier_inputs(seed))
+
+
+@pytest.mark.parametrize("case", ["owner_past_bitmap", "dst_past_bitmap",
+                                  "negative_owner", "negative_dst"])
+def test_frontier_plain_edge_cases(case):
+    """The oracle's rules where the Pallas kernel would read or write out
+    of bounds: an owner >= 32 W is clipped to the last bit, a dst >= 32 W
+    is dropped, an owner < 0 never expands."""
+    owner, dst, valid, f, v = _frontier_inputs(11)
+    valid[:] = True
+    v[:] = 0
+    f[:] = 0xFFFFFFFF
+    W = f.shape[0]
+    if case == "owner_past_bitmap":
+        owner[:] = 32 * W + 5
+        f[-1] = 0x7FFFFFFF                       # last bit clear: nothing
+        assert not _frontier_both(owner, dst, valid, f, v).any()
+        f[-1] = 0x80000000                       # last bit set: everything
+        assert _frontier_both(owner, dst, valid, f, v).any()
+    elif case == "dst_past_bitmap":
+        dst[:] = 32 * W + np.arange(dst.size).reshape(dst.shape) % 7
+        dst[0, 0] = 3
+        out = _frontier_both(owner.clip(0), dst, valid, f, v)
+        assert out.tolist() == [8] + [0] * (W - 1)
+    elif case == "negative_owner":
+        owner[:] = -1
+        assert not _frontier_both(owner, dst, valid, f, v).any()
+    else:
+        dst[:] = -5
+        assert not _frontier_both(owner, dst, valid, f, v).any()
+
+
+def test_frontier_csr_view_matches_bfs_hop():
+    """The (m_cap, 1) view of a CSR: one entry a block, owner =
+    edge_sources; one expansion equals the jnp hop of ``bfs`` with
+    visited = the frontier itself."""
+    from repro.analytics import algorithms as JA
+    rng = np.random.default_rng(5)
+    n, m_cap, m = 96, 512, 400
+    deg = rng.multinomial(m, np.ones(n) / n)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    dst = np.full(m_cap, -1, np.int32)
+    dst[:m] = rng.integers(0, n, m)
+    fr = rng.random(n) < 0.2
+    src = np.array(JA.edge_sources(jnp.asarray(indptr), m_cap))
+    ok = np.arange(m_cap) < m
+    W = (n + 31) // 32
+    fbits = pack_bits(torch.from_numpy(fr), W)
+    out = frontier_expand_plain(torch.from_numpy(src),
+                                torch.from_numpy(dst[:, None].copy()),
+                                torch.from_numpy(ok[:, None].copy()),
+                                fbits, fbits)
+    hit = np.zeros(n + 1, bool)
+    live = ok & fr[np.clip(src, 0, n - 1)]
+    hit[np.where(live, np.where(ok, dst, n), n)] = True
+    want = hit[:n] & ~fr
+    np.testing.assert_array_equal(unpack_bits(out, n).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 128])
+def test_pack_bits_matches_jax_bit_patterns(n):
+    rng = np.random.default_rng(n)
+    b = rng.random(n) < 0.5
+    b[-1] = True                                 # bit 31 of a word set
+    W = (n + 31) // 32
+    pad = np.zeros(32 * W, bool)
+    pad[:n] = b
+    want = jnp.sum(jnp.asarray(pad.reshape(W, 32), jnp.uint32)
+                   << jnp.arange(32, dtype=jnp.uint32), axis=1,
+                   dtype=jnp.uint32)
+    got = pack_bits(torch.from_numpy(b))
+    assert got.dtype == torch.int32 and got.shape == (W,)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+    np.testing.assert_array_equal(unpack_bits(got, n).numpy(), b)
+    words = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+    words[0] |= np.uint32(1 << 31)
+    bits = unpack_bits(torch.from_numpy(words.view(np.int32)), 32 * W)
+    np.testing.assert_array_equal(
+        bits.numpy(), ((words[:, None] >> np.arange(32, dtype=np.uint32))
+                       & 1).reshape(-1).astype(bool))
+
+
+def test_frontier_wrapper_runs_the_plain_version_on_cpu_tensors():
+    args = _t(*_frontier_inputs(3)[:3])
+    f, v = (torch.from_numpy(x.view(np.int32)) for x in
+            _frontier_inputs(3)[3:])
+    before = tops.launch_counts()
+    for impl in ("auto", "pallas", "ref"):
+        assert torch.equal(tops.frontier_expand(*args, f, v, impl=impl),
+                           frontier_expand_plain(*args, f, v))
+    assert torch.equal(frontier_expand(*args, f, v),
+                       frontier_expand_plain(*args, f, v))
+    assert "frontier_expand" in before
+    assert tops.launch_counts() == before   # no kernel launched on the CPU

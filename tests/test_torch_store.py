@@ -21,8 +21,9 @@ from repro.api import OpBatch as JOp
 from repro.api import ReadOp as JRead
 from repro.api import make_store as jmake
 from repro.core.radixgraph import RadixGraph as JG
-from repro_torch.api import (OpBatch, ReadOp, UnsupportedOpError,
-                             available_backends, make_store)
+from repro_torch.api import (AnalyticsOp, OpBatch, ReadOp,
+                             UnsupportedOpError, available_backends,
+                             make_store)
 from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import edgepool as TE
 from repro_torch.core import sort as TS
@@ -183,6 +184,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch\n"
         "from repro_torch.api import make_store\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.analytics, repro_torch.api.registry\n"
+        "import repro_torch.core.epoch_delta, repro_torch.serve\n"
+        "import repro_torch.analytics.incremental\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -213,15 +217,25 @@ def test_default_device_needs_a_card():
 
 
 def test_later_slices_raise_and_registry():
+    """Durability still raises naming its slice; analytics now answers."""
     s = make_store("local", device="cpu", n_max=256, expected_n=64,
                    pool_blocks=256, batch=64)
     assert available_backends() == ["local"]
     assert s.supported_ops == frozenset(("edges", "add_vertices",
                                          "delete_vertices"))
-    for call in (lambda: s.analytics(None), lambda: s.durable_state(),
-                 lambda: s.checkpoint("x"), lambda: s.restore("x")):
-        with pytest.raises(UnsupportedOpError, match="slice"):
+    for call in (lambda: s.durable_state(), lambda: s.load_durable_state(
+            None, {}), lambda: s.checkpoint("x"), lambda: s.restore("x")):
+        with pytest.raises(UnsupportedOpError, match="durability slice"):
             call()
+    s.apply(OpBatch.edges(np.array([1, 2], np.uint64),
+                          np.array([2, 3], np.uint64)))
+    assert s.analytics(AnalyticsOp("num_edges")) == 2
+    assert s.analytics(AnalyticsOp("bfs", dict(source=1))) == {1: 0, 2: 1,
+                                                               3: 2}
+    e = s.capture()
+    assert e.cache["gen"] == 0
+    prev = s.analytics_result(AnalyticsOp("degree_map"), e)
+    assert s.analytics_advance(AnalyticsOp("degree_map"), prev, e) is prev
     with pytest.raises(KeyError):
         make_store("sharded")
     e = s.capture()
