@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of RadixGraph on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
-                          [--analytics-edges 2097152]
+                          [--analytics-edges 2097152] [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -17,8 +17,17 @@ Phases (any failure raises and the script exits non-zero):
    and read just after; a host numpy last-writer-wins oracle over the
    same stream checks the answers;
 4. kernels: each kernel against its plain PyTorch version on inputs taken
-   from the main path's final state at main-path shapes (bit-exact), timed
-   with CUDA events;
+   from the main path's final state at main-path shapes (bit-exact). Each
+   row has two times: ``ms`` (= ``kernel_ms``), back-to-back wrapper calls
+   between two CUDA events, host work included; and ``device_ms``, the
+   hand-written kernels' own time per call from ``torch.profiler`` kernel
+   events (PyTorch's own output fills apart); ``graph_ms``, a CUDA graph of
+   20 calls replayed, per call, fills included. ``host_us`` is the
+   wrapper's host time per call, ``loss_ms`` launches x (device ms - bound
+   ms) over the main path's shapes. With ``--parent DIR`` (a checkout of an
+   earlier commit, e.g. from ``git archive``) every wrapper of that
+   checkout with this one's name is timed on the same inputs, in turns
+   (parent, this, this, parent);
    then ``torch.profiler`` over a few more batches (host ops, device
    busy share) and one rebuild and one snapshot timed alone;
 5. analytics path, on a second store with the same LiveJournal-sized
@@ -161,35 +170,257 @@ def cuda_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, reps=20):
+    """The kernels' own time on the card per call of ``fn``, from the
+    kernel events of a ``torch.profiler`` trace of ``reps`` calls: for the
+    hand-written kernels (``device_ms``) and, apart, for PyTorch's own
+    (``torch_kernels_ms``: the wrapper's output fills), each the sum over
+    kernel names of the mean duration, since each kernel of a wrapper runs
+    once a call. Also the hand-written kernels per call and the share of
+    their events the trace kept (CUPTI may drop some; ``graph_ms`` checks
+    the mean)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ours, theirs = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith(("Memcpy", "Memset")):
+            by = theirs if "at::" in e.name else ours
+            by.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not ours:
+        raise AssertionError("the profiler saw no kernel on the card")
+
+    def per_call(by):
+        return sum(sum(v) / len(v) for v in by.values()) / 1e3
+    return dict(device_ms=per_call(ours), kernels_per_call=len(ours),
+                profiler_events_kept=sum(map(len, ours.values())) /
+                (reps * len(ours)), torch_kernels_ms=per_call(theirs))
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Device time per call of ``fn`` with no host work between calls:
+    ``calls`` calls captured once in a CUDA graph, the graph replayed
+    ``replays`` times between two CUDA events. Every kernel of a call is
+    in it, PyTorch's output fills included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / (replays * calls)
+    g.reset()
+    return ms
+
+
+def timings(fn):
+    """Every time of one kernel row: call ms (CUDA events around
+    back-to-back calls), the profiler's kernel times, and the graph's."""
+    return dict(call_ms=cuda_ms(fn), **device_ms(fn), graph_ms=graph_ms(fn))
+
+
+def device_busy_us(prof):
+    """Device time of a trace: the sum over its device-side events. (The
+    sum of self device time over ``key_averages()`` counts each kernel
+    twice, on its own event and on the CPU event that launched it.)"""
+    from torch.autograd import DeviceType
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+
+
+def load_parent(root):
+    """A lookup ``(module, function) -> wrapper`` into the kernel package
+    of the checkout at ``root`` (an earlier commit), imported as package
+    ``parent_repro_torch`` beside this checkout's ``repro_torch``, with
+    every kernel source it has built. The lookup gives None for a wrapper
+    the parent does not have."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "src", "repro_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_repro_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    build = importlib.import_module("parent_repro_torch.kernels._build")
+    say("parent_build", root=root, per_source=build.build())
+
+    def lookup(module, fn):
+        try:
+            m = importlib.import_module(f"parent_repro_torch.kernels.{module}")
+        except ImportError:
+            return None
+        return getattr(m, fn, None)
+    return lookup
+
+
+def wrappers(parent, module, fn, *args, **kw):
+    """Calls of this checkout's wrapper ``kernels.<module>.<fn>`` on
+    ``args``, and of the parent's of the same name (None without a parent
+    or when it lacks the wrapper)."""
+    import importlib
+    this = getattr(importlib.import_module(f"repro_torch.kernels.{module}"),
+                   fn)
+    old = parent(module, fn) if parent else None
+    return (lambda: this(*args, **kw)), \
+        (None if old is None else lambda: old(*args, **kw))
+
+
+def probe_work(dst, pstart, psize, pv):
+    """What the append probes of this data read: the entries probed (each
+    enabled probe's extent, inside the pool), those matching their probe's
+    destination, and the probes with a match (a winner each)."""
+    import torch
+    flat_dst = dst.reshape(-1)
+    on = torch.nonzero((pstart >= 0) & (pv >= 0) & (psize > 0)).flatten()
+    reps = psize[on].long()
+    q = torch.repeat_interleave(on, reps)
+    first = torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps)
+    e = torch.arange(q.numel(), device=dst.device) - first
+    flat = pstart[q].long() * dst.shape[1] + e
+    inside = flat < flat_dst.numel()
+    hit = inside & (flat_dst[flat.clamp(max=flat_dst.numel() - 1)] == pv[q])
+    return (int(inside.sum()), int(hit.sum()),
+            int(torch.unique(q[hit]).numel()))
+
+
+def row_work(dst, size, w):
+    """What a row compactor needs of these rows: the occupied entries
+    (positions below size, up to the width), the last writers (one per
+    distinct valid dst of a row) and the survivors (last writers with a
+    non-zero weight); also the most entries one dst holds in one row (the
+    hash path's contention)."""
+    import torch
+    K, D = dst.shape
+    pos = torch.arange(D, device=dst.device)
+    occ = pos[None, :] < size.clamp(0, D)[:, None]
+    valid = occ & (dst >= 0) & (dst < 2 ** 30)
+    key = torch.arange(K, device=dst.device)[:, None] * 2 ** 30 + dst
+    key = torch.where(valid, key, -1)
+    # the last writer of a (row, dst) is its highest valid position
+    flat, fpos = key.reshape(-1), pos.expand(K, D).reshape(-1)
+    uk, inv, reps = torch.unique(flat, return_inverse=True,
+                                 return_counts=True)
+    top = torch.full((uk.numel(),), -1, dtype=torch.long,
+                     device=dst.device)
+    top.scatter_reduce_(0, inv, fpos, "amax")
+    is_last = valid.reshape(-1) & (fpos == top[inv])
+    alive = is_last & (w.reshape(-1) != 0)
+    most = int(reps[uk >= 0].max()) if bool((uk >= 0).any()) else 0
+    return int(occ.sum()), int(is_last.sum()), int(alive.sum()), most
+
+
 def next_pow2(x: int) -> int:
     return 1 << max(0, (int(x) - 1).bit_length())
 
 
-def kernel_entry(torch, name, shape, kern, plain, check, nbytes, nops):
+TIMES = ("call_ms", "device_ms", "torch_kernels_ms", "graph_ms")
+
+
+def kernel_entry(torch, name, shape, kerns, plain, check, nbytes, nops):
     """Hold a kernel against its plain version (``check`` returns both
-    outputs), time both with CUDA events, and compute the bound from the
-    bytes and operations these inputs need."""
+    outputs), time its calls, its kernels and a graph of its calls, time
+    the plain version, and compute the bound from the bytes and operations
+    these inputs need. ``kerns`` is (this wrapper's call, the parent's or
+    None): the parent's is held to this one's output and timed in turns
+    with it (parent, this, this, parent)."""
+    from repro_torch.kernels import ops as kops
+    kern, old = kerns
     out_k, out_p = check()
     match = len(out_k) == len(out_p) and all(
         torch.equal(x, y) for x, y in zip(out_k, out_p))
     err = max_abs_err(out_k, out_p)   # raises when they differ
-    ms, pms = cuda_ms(kern), cuda_ms(plain, reps=5, warm=1)
+    l0, h0 = kops.launch_counts()[name], kops.host_ns()[name]
+    ms = cuda_ms(kern)
+    host_us = (kops.host_ns()[name] - h0) / 1e3 / max(
+        1, kops.launch_counts()[name] - l0)
+    t = dict(call_ms=ms, **device_ms(kern), graph_ms=graph_ms(kern))
+    extra = {}
+    if old is not None:
+        out_par = old()
+        out_par = list(out_par) if isinstance(out_par, tuple) else [out_par]
+        max_abs_err(out_par, out_k[:len(out_par)])
+        p1 = timings(old)
+        t2 = timings(kern)
+        p2 = timings(old)
+        extra["parent"] = dict(
+            {k: [p1[k], p2[k]] for k in TIMES},
+            kernels_per_call=p1["kernels_per_call"],
+            **{f"this_{k}": [t[k], t2[k]] for k in TIMES})
+        t.update({k: (t[k] + t2[k]) / 2 for k in TIMES})
+    pms = cuda_ms(plain, reps=5, warm=1)
     bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-    return dict(name=name, shape=shape, match=match, max_abs_err=err, ms=ms,
-                plain_ms=pms, bound_ms=bound,
+    return dict(name=name, shape=shape, match=match, max_abs_err=err,
+                ms=t["call_ms"], device_ms=t["device_ms"],
+                torch_kernels_ms=t["torch_kernels_ms"],
+                graph_ms=t["graph_ms"],
+                kernels_per_call=t["kernels_per_call"],
+                profiler_events_kept=t["profiler_events_kept"],
+                host_us=host_us, plain_ms=pms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
                 nops / F32_OPS_PER_S else "operations",
-                bytes=int(nbytes), library_ms=None)
+                bytes=int(nbytes), library_ms=None, **extra)
 
 
-def kernel_line(name, row, launches):
+MS_IS = ("ms = kernel_ms: back-to-back wrapper calls between CUDA events; "
+         "device_ms: the hand-written kernel's own time per call, "
+         "torch.profiler kernel events (PyTorch's output fills apart, in "
+         "torch_kernels_ms); graph_ms: a CUDA graph of 20 calls replayed, "
+         "per call, fills included; host_us: the wrapper's host time per "
+         "call")
+
+
+def kernel_line(name, row, launches, loss=None):
     src, replaces = TPU_KERNELS[name]
-    return dict(name=name, route="cuda", source=src, replaces=replaces,
+    line = dict(name=name, route="cuda", source=src, replaces=replaces,
                 launches=launches, match=row["match"],
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
-                kernel_ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], shape=row["shape"])
+                kernel_ms=row["ms"], device_ms=row["device_ms"],
+                torch_kernels_ms=row["torch_kernels_ms"],
+                graph_ms=row["graph_ms"], host_us=row["host_us"],
+                kernels_per_call=row["kernels_per_call"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                shape=row["shape"], ms_is=MS_IS)
+    line["loss_ms"] = launches * (row["device_ms"] - row["bound_ms"]) \
+        if loss is None else loss
+    return line
+
+
+def shape_loss(name, entries, tally):
+    """launches x (device ms - bound ms) summed over the main path's calls
+    of ``name`` by row shape (``tally``), for the shapes measured; and the
+    calls at shapes not measured."""
+    by = {tuple(e["shape"]): e for e in entries if e["name"] == name}
+    loss, unmeasured = 0.0, 0
+    for (n, *shape), calls in tally.items():
+        if n != name:
+            continue
+        e = by.get(tuple(shape))
+        if e is None:
+            unmeasured += calls
+        else:
+            loss += calls * (e["device_ms"] - e["bound_ms"])
+    return loss, unmeasured
 
 
 def max_abs_err(xs, ys):
@@ -224,8 +455,9 @@ def phase_build():
         log = (_build.build_dir() / f"{name}.ptxas.txt")
         if log.exists():
             lines = [ln for ln in log.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln]
-            say("ptxas", source=name, report=lines[:12])
+                     if "Compiling entry" in ln or "registers" in ln or
+                     "spill" in ln]
+            say("ptxas", source=name, report=lines[:48])
     # tiny first launch of each kernel, held against its plain version
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
@@ -267,10 +499,27 @@ def phase_build():
     say("build_check", ok=True)
 
 
+def tally_shapes(mod, names, tally):
+    """Count the calls of ``mod``'s functions ``names`` by their first
+    argument's shape into ``tally`` (keys (name, *shape)); returns the
+    function that puts the originals back."""
+    orig = {n: getattr(mod, n) for n in names}
+
+    def counted(n, f):
+        def g(x, *a, **k):
+            key = (n, *x.shape)
+            tally[key] = tally.get(key, 0) + 1
+            return f(x, *a, **k)
+        return g
+    for n, f in orig.items():
+        setattr(mod, n, counted(n, f))
+    return lambda: [setattr(mod, n, f) for n, f in orig.items()]
+
+
 def phase_main(args, torch):
     from repro_torch.api import OpBatch, ReadOp, make_store
     from repro_torch.core import edgepool as ep
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import compact as kc, ops as kops
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -299,6 +548,8 @@ def phase_main(args, torch):
         pipeline_depth=g.pipeline_depth)
 
     B = g.batch
+    tally = {}       # row-compactor calls by shape, for the loss split
+    untally = tally_shapes(kc, ("compact_rows", "defrag_rows"), tally)
     kops.reset_launch_counts()
     s0 = dict(ep.SYNCS)
     lat = []
@@ -355,6 +606,8 @@ def phase_main(args, torch):
     n_edges = store.read(ReadOp("num_edges"))
     torch.cuda.synchronize()
     launches = kops.launch_counts()
+    host_ns = kops.host_ns()
+    untally()
     syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
     peak = torch.cuda.max_memory_allocated()
 
@@ -412,13 +665,20 @@ def phase_main(args, torch):
         reads_checked=int(within.sum()),
         reads_4096_s=t_reads, snapshot_s=t_snap,
         peak_memory_bytes=peak, oracle_check_s=t_oracle,
-        launches=launches, oracle="agrees")
-    return store, ids, sample, launches
+        launches=launches, host_us_per_launch={
+            k: host_ns[k] / 1e3 / launches[k] for k in launches
+            if launches[k]},
+        compactor_calls_by_shape={"x".join(map(str, k)): v
+                                  for k, v in tally.items()},
+        oracle="agrees")
+    return store, ids, sample, launches, tally
 
 
-def phase_kernels(store, ids, sample, launches, torch):
+def phase_kernels(store, ids, sample, launches, tally, torch, parent):
     """Each kernel against its plain version at main-path shapes, on
-    inputs taken from the main path's final state."""
+    inputs taken from the main path's final state. ``parent`` is None or
+    the lookup of ``load_parent``: each wrapper the parent has is timed
+    beside this checkout's."""
     from repro_torch.core import edgepool as ep
     from repro_torch.core.keys import pack_keys
     from repro_torch.kernels import append as ka, compact as kc, \
@@ -430,11 +690,12 @@ def phase_kernels(store, ids, sample, launches, torch):
     rng = np.random.default_rng(1)
     rows, shapes = {}, []
 
-    def record(name, shape, kern, plain, check, nbytes, nops):
-        entry = kernel_entry(torch, name, shape, kern, plain, check, nbytes,
+    def record(name, shape, kerns, plain, check, nbytes, nops):
+        entry = kernel_entry(torch, name, shape, kerns, plain, check, nbytes,
                              nops)
         shapes.append(entry)
         rows.setdefault(name, entry)
+        return entry
 
     # ---- sort_lookup: 2 x batch keys (the ingest shape) ----
     keys = pack_keys(ids[rng.choice(len(ids), 2 * g.batch)], 32, dev)
@@ -454,7 +715,7 @@ def phase_kernels(store, ids, sample, launches, torch):
         alive = alive & (child >= 0)
         node = child.clamp_min(0)
     record("sort_lookup", [keys.shape[0], 2],
-           lambda: ks.sort_lookup(pools, keys, **kw),
+           wrappers(parent, "sort_lookup", "sort_lookup", pools, keys, **kw),
            lambda: ks.sort_lookup_plain(pools, keys, **kw),
            lambda: ([ks.sort_lookup(pools, keys, **kw)],
                     [ks.sort_lookup_plain(pools, keys, **kw)]),
@@ -487,23 +748,30 @@ def phase_kernels(store, ids, sample, launches, torch):
     pp = [t.clone() for t in pk]
     was_k = ka.append_edges(*pk, *ops)
     was_p = ka.append_edges_plain(*pp, *ops)
-    probed = int(psize[(pstart >= 0) & (pv >= 0)].sum())
-    nv = int(wval.sum())
+    probed, matches, winners = probe_work(st.pool.dst, pstart, psize, pv)
+    landed = int((wval & (wblk < spec.n_blocks)).sum())   # all >= 0 here
+    # the bytes this function needs: dst of every probed entry, ts of each
+    # match, the weight of each probe's winner; pstart, psize, pv and the
+    # was_live byte per probe; wval per op, (wblk, wlane) per valid op, and
+    # (wd, ww, wts) read and written per landed op
     record("append", [spec.n_blocks, spec.block_size, P],
-           lambda: ka.append_edges(*pk, *ops),
+           wrappers(parent, "append", "append_edges", *pk, *ops),
            lambda: ka.append_edges_plain(*pp, *ops),
            lambda: ([was_k, *pk], [was_p, *pp]),
-           probed * 8 + P * 4 + nv * 12 + P * (6 * 4 + 1) + P * 13,
-           probed)
+           4 * (probed + matches + winners) + 13 * P + P +
+           8 * int(wval.sum()) + 24 * landed, probed)
     del pk, pp
 
     # ---- compact_rows: the three main-path shapes, from real rows ----
     live = (vt.del_time == 0) & (vt.start_block >= 0)
     sz = torch.where(live, vt.size, 0)
 
+    pick_rows = torch.Generator(device=dev).manual_seed(3)
+
     def rows_of(lo, hi, k):
         cand = torch.nonzero((sz > lo) & (sz <= hi)).flatten()
-        cand = cand[torch.randperm(cand.numel(), device=dev)[:k]]
+        cand = cand[torch.randperm(cand.numel(), device=dev,
+                                   generator=pick_rows)[:k]]
         u = torch.full((k,), -1, dtype=torch.int32, device=dev)
         u[:cand.numel()] = cand.to(torch.int32)
         return u
@@ -511,17 +779,26 @@ def phase_kernels(store, ids, sample, launches, torch):
     def compact_case(u, width, name="compact_rows", defrag=False):
         d, w, t, s = ep._gather_vertex_entries(spec, st.pool, vt, u, width)
         d, w, t, s = (x.contiguous() for x in (d, w, t, s))
-        occupied = int(s.clamp(max=width).sum())
-        nbytes = occupied * 12 + d.numel() * 12 + s.numel() * 8
-        nops = occupied * max(1, int(np.log2(max(width, 2))))
+        occupied, last, kept, most = row_work(d, s, w)
+        # the bytes this function needs: dst of every occupied entry, the
+        # weight of each dst's last writer, ts of each survivor; size;
+        # the (dst, w, ts) output rows in full, count (and live)
+        K = d.shape[0]
+        nbytes = 4 * occupied + w.element_size() * last + 4 * kept + \
+            4 * K + d.numel() * (8 + w.element_size()) + 4 * K * (1 + defrag)
+        # a table insert per occupied entry; the sort path compares
+        nops = occupied * (max(1, int(np.log2(max(width, 2)))) if defrag
+                           else 1)
         if defrag:
-            f, fp = kc.defrag_rows, kc.defrag_rows_plain
+            f, fp = "defrag_rows", kc.defrag_rows_plain
         else:
-            f, fp = kc.compact_rows, kc.compact_rows_plain
-        record(name, [u.shape[0], width], lambda: f(d, w, t, s),
+            f, fp = "compact_rows", kc.compact_rows_plain
+        mine = getattr(kc, f)
+        record(name, [K, width], wrappers(parent, "compact", f, d, w, t, s),
                lambda: fp(d, w, t, s),
-               lambda: (list(f(d, w, t, s)), list(fp(d, w, t, s))),
-               nbytes, nops)
+               lambda: (list(mine(d, w, t, s)), list(fp(d, w, t, s))),
+               nbytes, nops).update(occupied=occupied, last_writers=last,
+                                    survivors=kept, max_dst_repeats=most)
 
     compact_case(off.to(torch.int32)[:g.batch].contiguous(), spec.dmax)
     compact_case(rows_of(0, spec.probe_width, spec.k_max), spec.probe_width)
@@ -532,8 +809,15 @@ def phase_kernels(store, ids, sample, launches, torch):
                      "defrag_rows", defrag=True)
     torch.cuda.synchronize()
     say("kernel_shapes", card=card_line(), shapes=shapes)
-    return [kernel_line(name, rows[name], launches[name])
-            for name in INGEST_KERNELS]
+    lines = []
+    for name in INGEST_KERNELS:
+        loss = None
+        if name in ("compact_rows", "defrag_rows"):
+            loss, unmeasured = shape_loss(name, shapes, tally)
+            say("loss_by_shape", kernel=name, loss_ms=loss,
+                calls_at_unmeasured_shapes=unmeasured)
+        lines.append(kernel_line(name, rows[name], launches[name], loss))
+    return lines
 
 
 def _ev_attr(e, *names):
@@ -574,13 +858,11 @@ def phase_profile(store, ids, torch, n_batches=16):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    dev_us = sum(_ev_attr(e, "self_device_time_total", "self_cuda_time_total")
-                 for e in ka)
     top = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:14]
     say("profile_batches", card=card_line(), batches=n_batches,
         defrags_in_window=g.num_defrags - d0,
         batch_ms=wall * 1e3 / n_batches,
-        device_busy_share=dev_us / (wall * 1e6),
+        device_busy_share=device_busy_us(prof) / (wall * 1e6),
         host_ops_per_batch=sum(e.count for e in ka
                                if e.key.startswith("aten::")) / n_batches,
         top_host_ops=[dict(op=e.key, calls=e.count,
@@ -1071,7 +1353,7 @@ def phase_analytics(args, torch):
     return level, launches
 
 
-def phase_frontier_kernel(level, launches, torch):
+def phase_frontier_kernel(level, launches, torch, parent):
     """The frontier kernel against its plain version on the largest BFS
     level of the analytics phase, at its (m_cap, 1) CSR view."""
     from repro_torch.kernels import frontier as kf
@@ -1081,7 +1363,8 @@ def phase_frontier_kernel(level, launches, torch):
     args_ = (owner, dst, valid, fb, vb)
     nbytes = NB * 4 + NB * BS * 5 + 3 * W * 4
     row = kernel_entry(torch, "frontier_expand", [NB, BS, W],
-                       lambda: kf.frontier_expand(*args_),
+                       wrappers(parent, "frontier", "frontier_expand",
+                                *args_),
                        lambda: kf.frontier_expand_plain(*args_),
                        lambda: ([kf.frontier_expand(*args_)],
                                 [kf.frontier_expand_plain(*args_)]),
@@ -1156,6 +1439,9 @@ def main(argv=None):
     ap.add_argument("--mixed-ops", type=int, default=1 << 20)
     ap.add_argument("--analytics-edges", type=int, default=1 << 21,
                     help="undirected edges ingested before the analytics")
+    ap.add_argument("--parent", default=None,
+                    help="checkout of an earlier commit whose kernel "
+                         "wrappers are timed beside this one's")
     args = ap.parse_args(argv)
 
     print(card_line(), flush=True)
@@ -1173,14 +1459,16 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     phase_build()
-    store, ids, sample, launches = phase_main(args, torch)
-    kernels = phase_kernels(store, ids, sample, launches, torch)
+    parent = load_parent(args.parent) if args.parent else None
+    store, ids, sample, launches, tally = phase_main(args, torch)
+    kernels = phase_kernels(store, ids, sample, launches, tally, torch,
+                            parent)
     phase_profile(store, ids, torch)
     del store
     torch.cuda.empty_cache()
     level, alaunches = phase_analytics(args, torch)
     torch.cuda.empty_cache()
-    kernels.append(phase_frontier_kernel(level, alaunches, torch))
+    kernels.append(phase_frontier_kernel(level, alaunches, torch, parent))
     del level
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))

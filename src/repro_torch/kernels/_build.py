@@ -9,7 +9,10 @@ name carries a hash of its source, so an edited source rebuilds.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` holds one plain launch counter per kernel wrapper: each
-wrapper adds one where it launches its kernel, and nowhere else.
+wrapper adds one where it launches its kernel (``launch``), and nowhere
+else. ``HOST_NS`` sums, over the same launches, the wrapper's host time
+from its entry to the return of the launch: checks, allocations and the
+ctypes call, not the kernel's run on the card.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ import subprocess
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "LAUNCHES", "build_dir", "build", "load", "check_rc",
-           "check_tensor"]
+import torch
+
+__all__ = ["SOURCES", "LAUNCHES", "HOST_NS", "build_dir", "build", "load",
+           "check_rc", "check_tensor", "launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = {"append": "append.cu", "compact": "compact.cu",
@@ -33,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"append": 0, "compact_rows": 0,
                             "defrag_rows": 0, "sort_lookup": 0,
                             "frontier_expand": 0}
+HOST_NS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -100,11 +106,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_tensor(t, dtypes, shape, name: str, device, what: str):
+def check_tensor(t, dtypes, shape: tuple, name: str, device, what: str):
     """Raise unless ``t`` is a contiguous tensor of one of ``dtypes`` with
-    ``shape`` on ``device`` — what a kernel's C entry point assumes."""
-    if t.device != device or t.dtype not in dtypes or \
-            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+    ``shape`` (a tuple or ``torch.Size``) on ``device`` — what a kernel's
+    C entry point assumes."""
+    if t.dtype not in dtypes or t.shape != shape or t.device != device or \
+            not t.is_contiguous():
         raise ValueError(
             f"{what}: {name} must be a contiguous {dtypes} tensor of shape "
             f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} "
@@ -115,3 +122,19 @@ def check_rc(rc: int, what: str):
     """Raise when a C entry point reports a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(what: str, fn, device, args, t0: int):
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream, raise when it reports a CUDA error, then count the launch and
+    the wrapper's host time since ``t0`` (its ``time.perf_counter_ns()``
+    at entry). The device is entered only when it is not current."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check_rc(rc, what)
+    LAUNCHES[what] += 1
+    HOST_NS[what] += time.perf_counter_ns() - t0

@@ -7,15 +7,17 @@ the same function. Both update the three pool tensors IN PLACE and return
 ``was_live``.
 
 Semantics (``repro.kernels.ref.append_ref``): per op j, when ``wval[j]``
-write (wd, ww, wts)[j] at pool[wblk[j], wlane[j]]; per probe q, scan the
-owner extent (flat entries ``pstart[q]*BS + e`` for ``e < psize[q]``) for
-destination ``pv[q]`` and report whether the highest-timestamp match
-carries a non-NULL weight, before any append lands. ``pv < 0`` or
-``pstart < 0`` disables a probe.
+write (wd, ww, wts)[j] at pool[wblk[j], wlane[j]] (JAX's drop mode: a
+negative index counts from the end, one outside [-n, n) drops the op);
+per probe q, scan the owner extent (flat entries ``pstart[q]*BS + e`` for
+``e < psize[q]``) for destination ``pv[q]`` and report whether the
+highest-timestamp match carries a non-NULL weight, before any append
+lands. ``pv < 0`` or ``pstart < 0`` disables a probe.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -24,7 +26,7 @@ from . import _build
 
 __all__ = ["append_edges", "append_edges_plain", "append_tile_rows"]
 
-_I32, _F32 = torch.int32, torch.float32
+_I32, _F32, _BOOL = (torch.int32,), (torch.float32,), (torch.bool,)
 
 
 def append_tile_rows(nb: int, tile: int = 128) -> int:
@@ -61,16 +63,19 @@ def append_edges_plain(dst, w, ts, wblk, wlane, wval, wd, ww, wts,
         best_t = tm.gather(1, best[:, None])[:, 0]
         best_flat = fc.gather(1, best[:, None])[:, 0]
         was_live = (best_t > 0) & (w.reshape(-1)[best_flat] != 0)
-    ok = wval & (wblk >= 0) & (wblk < NB) & (wlane >= 0) & (wlane < BS)
-    flat_w = wblk.to(torch.int64) * BS + wlane.to(torch.int64)
+    # JAX's ``.at[].set(mode="drop")``: a negative index counts from the
+    # end; one outside [-n, n) is dropped
+    b, ln = wblk.to(torch.int64), wlane.to(torch.int64)
+    ok = wval & (b >= -NB) & (b < NB) & (ln >= -BS) & (ln < BS)
+    flat_w = torch.where(b < 0, b + NB, b) * BS + torch.where(ln < 0, ln + BS,
+                                                              ln)
     for pool, val in ((dst, wd), (w, ww), (ts, wts)):
         scatter_set_(pool.view(-1), flat_w, val, ok)
     return was_live
 
 
 def _lib():
-    lib = _build.load("append")
-    fn = lib.append_launch
+    fn = _build.load("append").append_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, p, p, p, p, p, p, i, p, p, p, i, p, p]
@@ -81,32 +86,35 @@ def _lib():
 def append_edges(dst, w, ts, wblk, wlane, wval, wd, ww, wts,
                  pstart, psize, pv):
     """Kernel wrapper: CUDA kernel on CUDA tensors, plain version on CPU
-    tensors. Updates the pools in place; returns ``was_live`` (P,) bool."""
+    tensors. Updates the pools in place; returns ``was_live`` (P,) bool.
+
+    The kernel runs probes and writes in one launch, in no order: every
+    write slot must lie outside every probed extent, as the edge pool's
+    slots (claimed at or after each owner's pre-batch size) do."""
     if not dst.is_cuda:
         return append_edges_plain(dst, w, ts, wblk, wlane, wval, wd, ww, wts,
                                   pstart, psize, pv)
+    t0 = time.perf_counter_ns()
     dev = dst.device
-    NB, BS = dst.shape
-    B, P = wblk.shape[0], pstart.shape[0]
+    pool = dst.shape
+    NB, BS = pool
+    ops, probes = (wblk.shape[0],), (pstart.shape[0],)
     for t, dt, shape, nm in (
-            (dst, _I32, (NB, BS), "dst"), (w, _F32, (NB, BS), "w"),
-            (ts, _I32, (NB, BS), "ts"), (wblk, _I32, (B,), "wblk"),
-            (wlane, _I32, (B,), "wlane"), (wval, torch.bool, (B,), "wval"),
-            (wd, _I32, (B,), "wd"), (ww, _F32, (B,), "ww"),
-            (wts, _I32, (B,), "wts"), (pstart, _I32, (P,), "pstart"),
-            (psize, _I32, (P,), "psize"), (pv, _I32, (P,), "pv")):
-        _build.check_tensor(t, (dt,), shape, nm, dev, "append")
+            (dst, _I32, pool, "dst"), (w, _F32, pool, "w"),
+            (ts, _I32, pool, "ts"), (wblk, _I32, ops, "wblk"),
+            (wlane, _I32, ops, "wlane"), (wval, _BOOL, ops, "wval"),
+            (wd, _I32, ops, "wd"), (ww, _F32, ops, "ww"),
+            (wts, _I32, ops, "wts"), (pstart, _I32, probes, "pstart"),
+            (psize, _I32, probes, "psize"), (pv, _I32, probes, "pv")):
+        _build.check_tensor(t, dt, shape, nm, dev, "append")
     if NB * BS >= 2 ** 62:
         raise ValueError("append: pool too large")
-    was_live = torch.empty((P,), dtype=torch.bool, device=dev)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(dst.data_ptr(), w.data_ptr(), ts.data_ptr(), NB, BS,
-                wblk.data_ptr(), wlane.data_ptr(), wval.data_ptr(),
-                wd.data_ptr(), ww.data_ptr(), wts.data_ptr(), B,
-                pstart.data_ptr(), psize.data_ptr(), pv.data_ptr(), P,
-                was_live.data_ptr(), stream)
-    _build.check_rc(rc, "append")
-    _build.LAUNCHES["append"] += 1
+    was_live = torch.empty(probes, dtype=torch.bool, device=dev)
+    if ops[0] == 0 and probes[0] == 0:
+        return was_live
+    _build.launch("append", _lib(), dev, (
+        dst.data_ptr(), w.data_ptr(), ts.data_ptr(), NB, BS,
+        wblk.data_ptr(), wlane.data_ptr(), wval.data_ptr(), wd.data_ptr(),
+        ww.data_ptr(), wts.data_ptr(), ops[0], pstart.data_ptr(),
+        psize.data_ptr(), pv.data_ptr(), probes[0], was_live.data_ptr()), t0)
     return was_live

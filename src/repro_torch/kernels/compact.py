@@ -9,11 +9,13 @@ PyTorch versions of the same functions (translations of
 
 Inputs are (K, D) rows — destination offsets (-1 empty), weights (0 =
 NULL tombstone, float32 or bfloat16), timestamps — with ``size`` (K,)
-the occupied prefix. Destination offsets must be below 2^30.
+the occupied prefix. An entry whose destination offset is 2^30 or more
+counts as empty, as in the oracles.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -24,7 +26,10 @@ __all__ = ["compact_rows", "compact_rows_plain", "defrag_rows",
            "defrag_rows_plain", "MAX_ROW_WIDTH"]
 
 BIGD = 2 ** 30
-MAX_ROW_WIDTH = 16384   # 12 bytes of shared memory per padded entry
+# compact_rows rows up to 8192 wide take the kernel's hash-table path;
+# wider ones, and defrag_rows, its sort path (12 bytes of shared memory per
+# padded entry)
+MAX_ROW_WIDTH = 16384
 
 
 def _sorted_rows(dst, w, ts, size, read_ts=None):
@@ -79,8 +84,7 @@ def defrag_rows_plain(dst, w, ts, size, keep_all: bool = False):
 
 
 def _lib():
-    lib = _build.load("compact")
-    fn = lib.rows_launch
+    fn = _build.load("compact").rows_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p]
@@ -88,40 +92,37 @@ def _lib():
     return fn
 
 
+_WDTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_WDTYPES = tuple(_WDTYPE)
+
+
 def _launch(mode: int, dst, w, ts, size, read_ts, keep_all: bool):
+    t0 = time.perf_counter_ns()
     name = "compact_rows" if mode == 0 else "defrag_rows"
     dev = dst.device
     if dst.dim() != 2:
         raise ValueError(f"{name}: rows must be 2-D, got {tuple(dst.shape)}")
-    K, D = dst.shape
-    for t, dts, shape, nm in (
-            (dst, (torch.int32,), (K, D), "dst"),
-            (w, (torch.float32, torch.bfloat16), (K, D), "w"),
-            (ts, (torch.int32,), (K, D), "ts"),
-            (size, (torch.int32,), (K,), "size")):
-        _build.check_tensor(t, dts, shape, nm, dev, name)
+    shape = dst.shape
+    K, D = shape
+    _build.check_tensor(dst, (I32,), shape, "dst", dev, name)
+    _build.check_tensor(w, _WDTYPES, shape, "w", dev, name)
+    _build.check_tensor(ts, (I32,), shape, "ts", dev, name)
+    _build.check_tensor(size, (I32,), (K,), "size", dev, name)
     if D > MAX_ROW_WIDTH:
         raise ValueError(f"{name}: row width {D} > {MAX_ROW_WIDTH}")
-    odst = torch.empty((K, D), dtype=torch.int32, device=dev)
-    ow = torch.empty((K, D), dtype=w.dtype, device=dev)
-    ots = torch.empty((K, D), dtype=torch.int32, device=dev)
-    ocnt = torch.empty((K,), dtype=torch.int32, device=dev)
-    olive = torch.empty((K,), dtype=torch.int32, device=dev)
+    odst, ow, ots = (torch.empty_like(dst), torch.empty_like(w),
+                     torch.empty_like(ts))
+    ocnt = torch.empty_like(size)
+    olive = torch.empty_like(size) if mode == 1 else None
     if K == 0 or D == 0:
         ocnt.zero_()
-        olive.zero_()
-        return odst, ow, ots, ocnt, olive
+        return odst, ow, ots, ocnt, None if olive is None else olive.zero_()
     rt = 0 if read_ts is None else int(read_ts)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(mode, 0 if w.dtype == torch.float32 else 1, dst.data_ptr(),
-                w.data_ptr(), ts.data_ptr(), size.data_ptr(), K, D,
-                int(read_ts is not None), rt, int(keep_all),
-                odst.data_ptr(), ow.data_ptr(), ots.data_ptr(),
-                ocnt.data_ptr(), olive.data_ptr(), stream)
-    _build.check_rc(rc, name)
-    _build.LAUNCHES[name] += 1
+    _build.launch(name, _lib(), dev, (
+        mode, _WDTYPE[w.dtype], dst.data_ptr(), w.data_ptr(), ts.data_ptr(),
+        size.data_ptr(), K, D, int(read_ts is not None), rt, int(keep_all),
+        odst.data_ptr(), ow.data_ptr(), ots.data_ptr(), ocnt.data_ptr(),
+        None if olive is None else olive.data_ptr()), t0)
     return odst, ow, ots, ocnt, olive
 
 

@@ -19,6 +19,7 @@ a bitmap is bit ``v % 32`` of word ``v // 32``. ``pack_bits`` and
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -83,6 +84,7 @@ def frontier_expand(owner, dst, valid, frontier_bits, visited_bits):
     if not dst.is_cuda:
         return frontier_expand_plain(owner, dst, valid, frontier_bits,
                                      visited_bits)
+    t0 = time.perf_counter_ns()
     dev = dst.device
     NB, BS = dst.shape
     W = frontier_bits.shape[0]
@@ -97,12 +99,8 @@ def frontier_expand(owner, dst, valid, frontier_bits, visited_bits):
     if W == 0 or 32 * W >= 2 ** 31:
         raise ValueError(f"{what}: need 0 < W < 2^26 bitmap words, got {W}")
     out = torch.zeros((W,), dtype=I32, device=dev)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(owner.data_ptr(), dst.data_ptr(), valid.data_ptr(),
-                frontier_bits.data_ptr(), visited_bits.data_ptr(),
-                out.data_ptr(), NB, BS, W, stream)
-    _build.check_rc(rc, what)
-    _build.LAUNCHES[what] += 1
+    _build.launch(what, _lib(), dev, (
+        owner.data_ptr(), dst.data_ptr(), valid.data_ptr(),
+        frontier_bits.data_ptr(), visited_bits.data_ptr(), out.data_ptr(),
+        NB, BS, W), t0)
     return out

@@ -25,7 +25,8 @@ from . import frontier as _frontier
 from . import sort_lookup as _sort_lookup
 
 __all__ = ["append_edges", "compact_rows", "defrag_rows", "sort_lookup",
-           "frontier_expand", "append_tile_rows", "launch_counts", "reset_launch_counts"]
+           "frontier_expand", "append_tile_rows", "launch_counts",
+           "host_ns", "reset_launch_counts"]
 
 append_tile_rows = _append.append_tile_rows
 _KERNEL = ("auto", "pallas")
@@ -83,6 +84,14 @@ def launch_counts() -> Dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def host_ns() -> Dict[str, int]:
+    """Host nanoseconds per wrapper, summed over its launches since the
+    last reset (checks, allocations and the ctypes call)."""
+    return dict(_build.HOST_NS)
+
+
 def reset_launch_counts():
+    """Zero the launch counts and their host time."""
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
+        _build.HOST_NS[k] = 0

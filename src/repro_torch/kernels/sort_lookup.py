@@ -9,6 +9,7 @@ gather of ``repro.core.sort.lookup`` (equal to the oracle
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -52,6 +53,7 @@ def sort_lookup(pools, keys, *, fanout_bits, bit_offsets):
     if not keys.is_cuda:
         return sort_lookup_plain(pools, keys, fanout_bits=fanout_bits,
                                  bit_offsets=bit_offsets)
+    t0 = time.perf_counter_ns()
     dev = keys.device
     L = len(pools)
     if not 1 <= L <= MAX_LAYERS or len(fanout_bits) != L or \
@@ -69,11 +71,6 @@ def sort_lookup(pools, keys, *, fanout_bits, bit_offsets):
     sizes = (ctypes.c_longlong * L)(*[p.shape[0] for p in pools])
     bits = (ctypes.c_int * L)(*fanout_bits)
     offs = (ctypes.c_int * L)(*bit_offsets)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(keys.data_ptr(), out.data_ptr(), B, ptrs, sizes, bits, offs,
-                L, stream)
-    _build.check_rc(rc, "sort_lookup")
-    _build.LAUNCHES["sort_lookup"] += 1
+    _build.launch("sort_lookup", _lib(), dev, (
+        keys.data_ptr(), out.data_ptr(), B, ptrs, sizes, bits, offs, L), t0)
     return out

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from _kernel_cases import (APPEND_ARGS, APPEND_CASES, COMPACT_CASES,
+                           DEFRAG_CASES, append_case, edge_pool_append_calls,
+                           rows_case, writes_outside_probes)
 from repro_torch.core.keys import pack_keys as tpack_keys
 from repro_torch.core.sort_optimizer import optimize_sort
 from repro_torch.kernels.append import append_edges, append_edges_plain
@@ -35,24 +38,6 @@ def _rows(seed, K, D, n_cap=64):
     ts = rng.permutation(K * D).reshape(K, D).astype(np.int32)
     size = rng.integers(0, D + 1, (K,)).astype(np.int32)
     return dst, w, ts, size
-
-
-def _append_inputs(seed, NB, BS, B):
-    """Random pools and ops with distinct write slots (the edge pool never
-    lands two ops on one slot)."""
-    rng = np.random.default_rng(seed)
-    dst = rng.integers(-1, 16, (NB, BS)).astype(np.int32)
-    w = np.round(rng.uniform(0, 2, (NB, BS))).astype(np.float32)
-    ts = (rng.permutation(NB * BS).reshape(NB, BS) + 1).astype(np.int32)
-    flat = rng.choice(NB * BS, B, replace=False)
-    return (dst, w, ts, (flat // BS).astype(np.int32),
-            (flat % BS).astype(np.int32), rng.random(B) < 0.7,
-            rng.integers(0, 16, B).astype(np.int32),
-            np.round(rng.uniform(0, 2, B)).astype(np.float32),
-            (rng.permutation(B) + NB * BS + 1).astype(np.int32),
-            rng.integers(-1, NB, B).astype(np.int32),
-            rng.integers(0, 3 * BS, B).astype(np.int32),
-            rng.integers(-1, 16, B).astype(np.int32))
 
 
 # ---- on the card: each CUDA kernel against its plain version ----
@@ -97,11 +82,8 @@ def test_defrag_rows_kernel_on_card(cuda_device, K, D, keep_all):
         assert torch.equal(x, y)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_append_kernel_on_card(cuda_device, seed):
-    args = _t(*_append_inputs(seed, NB=4096, BS=16, B=4096))
-    ka = _cuda(args, cuda_device)
+def _append_both(c, dev):
+    ka = _cuda(_t(*[c[k] for k in APPEND_ARGS]), dev)
     pa = [t.clone() for t in ka]
     was_k = append_edges(*ka)
     was_p = append_edges_plain(*pa)
@@ -109,6 +91,109 @@ def test_append_kernel_on_card(cuda_device, seed):
     assert torch.equal(was_k, was_p)
     for x, y in zip(ka[:3], pa[:3]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_append_kernel_on_card(cuda_device, seed):
+    """4096 probes and 4096 ops over about 5000 block rows; write slots lie
+    outside every probed extent, as the edge pool's do (the kernel runs
+    probes and writes in one launch)."""
+    _append_both(append_case("extents", seed, owners=2048, n_probes=4096,
+                             n_ops=4096), cuda_device)
+
+
+@pytest.mark.cuda
+def test_append_kernel_on_edge_pool_calls_on_card(cuda_device):
+    """The inputs of the edge pool's own append calls on the card: each
+    keeps its writes outside the probed extents, and the one-launch kernel
+    matches the plain version on it."""
+    calls = edge_pool_append_calls("cuda")
+    assert len(calls) >= 8
+    for c in calls:
+        assert writes_outside_probes(c)
+        _append_both(c, cuda_device)
+
+
+# ---- the edge cases of tests/_kernel_cases.py, which
+# tests/test_torch_kernels.py holds the plain versions to the oracles on ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_rows_edge_cases_on_card(cuda_device, case):
+    """The warp path (lim <= 256), the block path, the sort path (D >
+    8192), size > D, one dst, tombstones only, table-size multiples, dst
+    2^30 - 1, read_ts, bfloat16."""
+    c = rows_case(case)
+    args = _cuda(_t(c["dst"], c["w"], c["ts"], c["size"]), cuda_device)
+    args[1] = args[1].to(getattr(torch, c["wdtype"]))
+    a = compact_rows(*args, read_ts=c["read_ts"])
+    b = compact_rows_plain(*args, read_ts=c["read_ts"])
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEFRAG_CASES)
+def test_defrag_rows_edge_cases_on_card(cuda_device, case):
+    """With and without ``keep_all`` on the same rows."""
+    c = rows_case(case)
+    args = _cuda(_t(c["dst"], c["w"], c["ts"], c["size"]), cuda_device)
+    for keep_all in (False, True):
+        a = defrag_rows(*args, keep_all=keep_all)
+        b = defrag_rows_plain(*args, keep_all=keep_all)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", APPEND_CASES)
+def test_append_edge_cases_on_card(cuda_device, case):
+    _append_both(append_case(case), cuda_device)
+
+
+@pytest.mark.cuda
+def test_wrappers_check_what_the_kernels_assume_on_card(cuda_device):
+    """dtype, shape, device and contiguity are checked before a launch."""
+    c = rows_case("lims_512")
+    d, w, t, z = _cuda(_t(c["dst"], c["w"], c["ts"], c["size"]),
+                       cuda_device)
+    for bad in ((d.long(), w, t, z), (d, w.double(), t, z),
+                (d, w, t[:, :-1], z), (d, w, t, z[:-1]),
+                (d, w, t, z.cpu()), (d, w.t().contiguous().t(), t, z)):
+        with pytest.raises(ValueError):
+            compact_rows(*bad)
+    a = _cuda(_t(*[append_case("extents")[k] for k in APPEND_ARGS]),
+              cuda_device)
+    for i, bad in ((1, a[1].double()), (3, a[3][:-1]), (11, a[11].cpu())):
+        with pytest.raises(ValueError):
+            append_edges(*a[:i], bad, *a[i + 1:])
+
+
+@pytest.mark.cuda
+def test_append_is_one_kernel_per_call_on_card(cuda_device):
+    """One call, one launch: the profiler sees one kernel on the card per
+    ``append_edges`` call, and the launch counter one launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    c = append_case("extents")
+    args = _cuda(_t(*[c[k] for k in APPEND_ARGS]), cuda_device)
+    append_edges(*args)                      # build and load first
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["append"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            append_edges(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    assert all("append_kernel" in k for k in kernels), kernels
+    assert ops.launch_counts()["append"] == before + 3
 
 
 @pytest.mark.cuda

@@ -21,6 +21,9 @@ from repro.core.keys import pack_keys
 from repro.core.sort import SortSpec
 from repro.core.sort_optimizer import optimize_sort
 from repro.kernels import ref as R
+from _kernel_cases import (APPEND_ARGS, APPEND_CASES, COMPACT_CASES,
+                           DEFRAG_CASES, append_case, edge_pool_append_calls,
+                           rows_case, writes_outside_probes)
 from repro_torch.core.keys import pack_keys as tpack_keys
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.append import append_edges, append_edges_plain
@@ -146,6 +149,77 @@ def test_append_plain_matches_oracle(seed, corner):
     for x, y in zip((nd, nw, nt, was), (targs[0], targs[1], targs[2],
                                         was_t)):
         _eq(x, y)
+
+
+# ---- edge cases of tests/_kernel_cases.py (the card's cases too) ----
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_rows_plain_edge_cases(case):
+    """Occupancies around the warp and block paths of the kernel, size >
+    D, one repeated dst, only tombstones, dsts at multiples of the table
+    sizes, dst 2^30 - 1 (and 2^30 up: empty), the read_ts filter, bfloat16
+    weights, D = 8192 and MAX_ROW_WIDTH."""
+    c = rows_case(case)
+    wd = c["wdtype"]
+    a = R.compact_rows_ref(jnp.asarray(c["dst"]), jnp.asarray(c["w"], wd),
+                           jnp.asarray(c["ts"]), jnp.asarray(c["size"]),
+                           read_ts=c["read_ts"])
+    td, tw, tt, tz = _t(c["dst"], c["w"], c["ts"], c["size"])
+    b = compact_rows_plain(td, tw.to(getattr(torch, wd)), tt, tz,
+                           read_ts=c["read_ts"])
+    for x, y in zip(a, b):
+        _eq(x, y)
+
+
+@pytest.mark.parametrize("case", DEFRAG_CASES)
+@pytest.mark.parametrize("keep_all", [False, True])
+def test_defrag_rows_plain_edge_cases(case, keep_all):
+    c = rows_case(case)
+    args = (c["dst"], c["w"], c["ts"], c["size"])
+    a = R.defrag_rows_ref(*map(jnp.asarray, args), keep_all=keep_all)
+    b = defrag_rows_plain(*_t(*args), keep_all=keep_all)
+    for x, y in zip(a, b):
+        _eq(x, y)
+
+
+@pytest.mark.parametrize("case", APPEND_CASES)
+def test_append_plain_edge_cases(case):
+    """No probes, no ops, both, out-of-range and negative (wrapping) write
+    indices, a block size that is not a multiple of 4, extents that end
+    at the pool's last block and probes past it; pools and was_live
+    bit-exact against ``append_ref``."""
+    args = [append_case(case)[k] for k in APPEND_ARGS]
+    nd, nw, nt, was = R.append_ref(*map(jnp.asarray, args))
+    targs = _t(*args)
+    was_t = append_edges_plain(*targs)
+    for x, y in zip((nd, nw, nt, was), (*targs[:3], was_t)):
+        _eq(x, y)
+
+
+def test_append_plain_on_edge_pool_calls():
+    """The edge pool's own append calls (tombstones, hubs, a rebuild):
+    every landing write lies outside every probed extent, the condition
+    of the kernel's single launch, and the plain version matches
+    ``append_ref`` bit-exactly on each call."""
+    calls = edge_pool_append_calls("cpu")
+    assert len(calls) >= 8
+    for c in calls:
+        assert writes_outside_probes(c)
+        args = [c[k] for k in APPEND_ARGS]
+        nd, nw, nt, was = R.append_ref(*map(jnp.asarray, args))
+        targs = _t(*args)
+        was_t = append_edges_plain(*targs)
+        for x, y in zip((nd, nw, nt, was), (*targs[:3], was_t)):
+            _eq(x, y)
+
+
+def test_writes_outside_probes_sees_a_write_in_a_probed_extent():
+    c = append_case("extents")
+    assert writes_outside_probes(c)
+    q = int(np.flatnonzero((c["pstart"] >= 0) & (c["pv"] >= 0) &
+                           (c["psize"] > 0))[0])
+    c["wblk"][0], c["wlane"][0], c["wval"][0] = c["pstart"][q], 0, True
+    assert not writes_outside_probes(c)
 
 
 @pytest.mark.parametrize("n", [128, 500])
