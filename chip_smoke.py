@@ -15,21 +15,31 @@ Phases (any failure raises and the script exits non-zero):
    with 25% tombstones, one explicit rebuild, lookup / degree / neighbors
    for 4096 IDs and one snapshot. Launch counters are zeroed just before
    and read just after; a host numpy last-writer-wins oracle over the
-   same stream checks the answers;
+   same stream checks the answers. Every rebuild must stream (hubs past
+   ``dmax`` through the wide tier); each rebuild's path, ms and wide tier
+   are printed;
+   then the final state rebuilt from two copies, by the dense reference
+   and by the streaming path: every leaf equal, both times printed;
 4. kernels: each kernel against its plain PyTorch version on inputs taken
-   from the main path's final state at main-path shapes (bit-exact). Each
+   from the main path's final state at main-path shapes (bit-exact):
+   ``defrag_rows`` at every (rows, width) shape the path called and at
+   the final state's wide tier; ``sort_lookup``'s latency floor from a
+   separate pointer-chase kernel (one dependent load a layer) and from
+   the same kernel on its first 1 .. l layers. Each
    row has two times: ``ms`` (= ``kernel_ms``), back-to-back wrapper calls
    between two CUDA events, host work included; and ``device_ms``, the
    hand-written kernels' own time per call from ``torch.profiler`` kernel
-   events (PyTorch's own output fills apart); ``graph_ms``, a CUDA graph of
-   20 calls replayed, per call, fills included. ``host_us`` is the
-   wrapper's host time per call, ``loss_ms`` launches x (device ms - bound
-   ms) over the main path's shapes. With ``--parent DIR`` (a checkout of an
-   earlier commit, e.g. from ``git archive``) every wrapper of that
-   checkout with this one's name is timed on the same inputs, in turns
-   (parent, this, this, parent);
+   events (PyTorch's own output fills apart; kernels per call from the
+   wrapper's launch counter); ``graph_ms``, a CUDA graph of 20 calls
+   replayed, per call, fills included. ``host_us`` is the wrapper's host
+   time per call, ``loss_ms`` calls x (device ms - bound ms) over the
+   main path's shapes (launches x for the kernels of one shape). With
+   ``--parent DIR`` (a checkout of an earlier commit, e.g. from ``git
+   archive``) every wrapper of that checkout with this one's name is
+   timed on the same inputs, in turns (parent, this, this, parent);
    then ``torch.profiler`` over a few more batches (host ops, device
-   busy share) and one rebuild and one snapshot timed alone;
+   busy share), one rebuild and one snapshot timed alone, and one more
+   rebuild whose ``defrag_rows`` calls are timed alone on their inputs;
 5. analytics path, on a second store with the same LiveJournal-sized
    state, undirected, after the first is freed: 2^21 powerlaw edges
    (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
@@ -170,39 +180,46 @@ def cuda_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, launched, reps=20):
     """The kernels' own time on the card per call of ``fn``, from the
     kernel events of a ``torch.profiler`` trace of ``reps`` calls: for the
     hand-written kernels (``device_ms``) and, apart, for PyTorch's own
-    (``torch_kernels_ms``: the wrapper's output fills), each the sum over
-    kernel names of the mean duration, since each kernel of a wrapper runs
-    once a call. Also the hand-written kernels per call and the share of
-    their events the trace kept (CUPTI may drop some; ``graph_ms`` checks
-    the mean)."""
+    (``torch_kernels_ms``: the wrapper's output fills). ``launched()``
+    reads the wrapper's launch counter: its rise over the traced calls
+    gives the hand-written kernels per call exactly (a wide
+    ``defrag_rows`` call runs its merge kernel once per pass), and the
+    share of their events the trace kept (CUPTI may drop some, and
+    ``graph_ms`` checks the mean). ``device_ms`` is the mean kept event
+    times the kernels per call, and each kernel's share of it
+    (``device_ms_by_kernel``) its kept time over the kept share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    n0 = launched()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    per = (launched() - n0) / reps
     ours, theirs = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and \
                 not e.name.startswith(("Memcpy", "Memset")):
             by = theirs if "at::" in e.name else ours
             by.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not ours:
+    if not ours or per <= 0:
         raise AssertionError("the profiler saw no kernel on the card")
-
-    def per_call(by):
-        return sum(sum(v) / len(v) for v in by.values()) / 1e3
-    return dict(device_ms=per_call(ours), kernels_per_call=len(ours),
-                profiler_events_kept=sum(map(len, ours.values())) /
-                (reps * len(ours)), torch_kernels_ms=per_call(theirs))
+    kept = sum(map(len, ours.values())) / (reps * per)
+    fills = sum(sum(v) / len(v) * max(1, round(len(v) / reps))
+                for v in theirs.values()) / 1e3
+    return dict(device_ms=sum(map(sum, ours.values())) / (reps * kept) / 1e3,
+                kernels_per_call=per,
+                device_ms_by_kernel={k.split("(")[0]: sum(v) / (reps * kept)
+                                     / 1e3 for k, v in ours.items()},
+                profiler_events_kept=kept, torch_kernels_ms=fills)
 
 
 def graph_ms(fn, calls=20, replays=10):
@@ -231,10 +248,11 @@ def graph_ms(fn, calls=20, replays=10):
     return ms
 
 
-def timings(fn):
+def timings(fn, launched):
     """Every time of one kernel row: call ms (CUDA events around
     back-to-back calls), the profiler's kernel times, and the graph's."""
-    return dict(call_ms=cuda_ms(fn), **device_ms(fn), graph_ms=graph_ms(fn))
+    return dict(call_ms=cuda_ms(fn), **device_ms(fn, launched),
+                graph_ms=graph_ms(fn))
 
 
 def device_busy_us(prof):
@@ -349,19 +367,22 @@ def kernel_entry(torch, name, shape, kerns, plain, check, nbytes, nops):
     match = len(out_k) == len(out_p) and all(
         torch.equal(x, y) for x, y in zip(out_k, out_p))
     err = max_abs_err(out_k, out_p)   # raises when they differ
-    l0, h0 = kops.launch_counts()[name], kops.host_ns()[name]
+    c0, h0 = kops.call_counts()[name], kops.host_ns()[name]
     ms = cuda_ms(kern)
     host_us = (kops.host_ns()[name] - h0) / 1e3 / max(
-        1, kops.launch_counts()[name] - l0)
-    t = dict(call_ms=ms, **device_ms(kern), graph_ms=graph_ms(kern))
+        1, kops.call_counts()[name] - c0)
+    launched = (lambda: kops.launch_counts()[name])
+    t = dict(call_ms=ms, **device_ms(kern, launched), graph_ms=graph_ms(kern))
     extra = {}
     if old is not None:
         out_par = old()
         out_par = list(out_par) if isinstance(out_par, tuple) else [out_par]
         max_abs_err(out_par, out_k[:len(out_par)])
-        p1 = timings(old)
-        t2 = timings(kern)
-        p2 = timings(old)
+        parent_counts = sys.modules["parent_repro_torch.kernels._build"]
+        old_launched = (lambda: parent_counts.LAUNCHES[name])
+        p1 = timings(old, old_launched)
+        t2 = timings(kern, launched)
+        p2 = timings(old, old_launched)
         extra["parent"] = dict(
             {k: [p1[k], p2[k]] for k in TIMES},
             kernels_per_call=p1["kernels_per_call"],
@@ -374,6 +395,7 @@ def kernel_entry(torch, name, shape, kerns, plain, check, nbytes, nops):
                 torch_kernels_ms=t["torch_kernels_ms"],
                 graph_ms=t["graph_ms"],
                 kernels_per_call=t["kernels_per_call"],
+                device_ms_by_kernel=t["device_ms_by_kernel"],
                 profiler_events_kept=t["profiler_events_kept"],
                 host_us=host_us, plain_ms=pms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
@@ -382,11 +404,12 @@ def kernel_entry(torch, name, shape, kerns, plain, check, nbytes, nops):
 
 
 MS_IS = ("ms = kernel_ms: back-to-back wrapper calls between CUDA events; "
-         "device_ms: the hand-written kernel's own time per call, "
-         "torch.profiler kernel events (PyTorch's output fills apart, in "
-         "torch_kernels_ms); graph_ms: a CUDA graph of 20 calls replayed, "
-         "per call, fills included; host_us: the wrapper's host time per "
-         "call")
+         "device_ms: the hand-written kernels' own time per call, "
+         "torch.profiler kernel events, the mean kept event times the "
+         "kernels per call that the wrapper counted (PyTorch's output "
+         "fills apart, in torch_kernels_ms); graph_ms: a CUDA graph of "
+         "20 calls replayed, per call, fills included; host_us: the "
+         "wrapper's host time per call")
 
 
 def kernel_line(name, row, launches, loss=None):
@@ -407,11 +430,12 @@ def kernel_line(name, row, launches, loss=None):
 
 
 def shape_loss(name, entries, tally):
-    """launches x (device ms - bound ms) summed over the main path's calls
-    of ``name`` by row shape (``tally``), for the shapes measured; and the
-    calls at shapes not measured."""
+    """calls x (device ms - bound ms) summed over the main path's calls of
+    ``name`` by row shape (``tally``), for the shapes measured; the device
+    ms summed over the same calls; those calls; and the calls at shapes
+    not measured."""
     by = {tuple(e["shape"]): e for e in entries if e["name"] == name}
-    loss, unmeasured = 0.0, 0
+    loss, dev, measured, unmeasured = 0.0, 0.0, 0, 0
     for (n, *shape), calls in tally.items():
         if n != name:
             continue
@@ -419,8 +443,12 @@ def shape_loss(name, entries, tally):
         if e is None:
             unmeasured += calls
         else:
-            loss += calls * (e["device_ms"] - e["bound_ms"])
-    return loss, unmeasured
+            e["path_calls"] = calls
+            e["loss_ms"] = calls * (e["device_ms"] - e["bound_ms"])
+            loss += e["loss_ms"]
+            dev += calls * e["device_ms"]
+            measured += calls
+    return loss, dev, measured, unmeasured
 
 
 def max_abs_err(xs, ys):
@@ -447,7 +475,9 @@ def phase_build():
     from repro_torch.kernels import append as ka, compact as kc, \
         frontier as kf, sort_lookup as ks
     t0 = time.perf_counter()
+    chase = start_chase_build()
     secs = _build.build()
+    chase_lib = chase()
     say("build", seconds=round(time.perf_counter() - t0, 3),
         per_source={k: round(v, 3) for k, v in secs.items()},
         build_dir=str(_build.build_dir()))
@@ -470,6 +500,15 @@ def phase_build():
     max_abs_err(kc.defrag_rows(*args), kc.defrag_rows_plain(*args))
     max_abs_err(kc.defrag_rows(*args, keep_all=True),
                 kc.defrag_rows_plain(*args, keep_all=True))
+    # rows past one block's sort: sorted runs in device memory, merged
+    d = torch.randint(-1, 4000, (2, 20000), generator=g, dtype=torch.int32)
+    w = torch.randint(0, 3, (2, 20000), generator=g).float()
+    t = torch.randperm(40000, generator=g).reshape(2, 20000).to(torch.int32)
+    z = torch.tensor([20000, 300], dtype=torch.int32)
+    args = [x.to(dev) for x in (d, w, t, z)]
+    for keep_all in (False, True):
+        max_abs_err(kc.defrag_rows(*args, keep_all=keep_all),
+                    kc.defrag_rows_plain(*args, keep_all=keep_all))
     pools = [torch.tensor([0, -1, 1, -1], dtype=torch.int32, device=dev),
              torch.tensor([5, 6, -1, 7], dtype=torch.int32, device=dev)]
     keys = torch.tensor([[0, 0], [0, 1], [0, 2], [0, 3]], dtype=torch.int64,
@@ -497,6 +536,7 @@ def phase_build():
                 [kf.frontier_expand_plain(*fargs)])
     torch.cuda.synchronize()
     say("build_check", ok=True)
+    return chase_lib
 
 
 def tally_shapes(mod, names, tally):
@@ -554,15 +594,23 @@ def phase_main(args, torch):
     s0 = dict(ep.SYNCS)
     lat = []
     rebuild_ms = {"defrag_stream": 0.0, "defrag_dense": 0.0}
+    rebuilds = []    # one record per rebuild, in order
 
-    def timed_rebuilds(fn):
+    def timed_rebuilds(fn, cause):
         """Run ``fn`` and add the rebuild time it paid (the facade's
-        ``defrag_ms``) to the bucket of the rebuild path it took."""
+        ``defrag_ms``: the whole batch that paid it) to the bucket of the
+        rebuild path it took, with a record of the rebuild."""
         before, ms0 = dict(ep.SYNCS), g.defrag_ms
         out = fn()
         for path in rebuild_ms:
             if ep.SYNCS[path] > before[path]:
                 rebuild_ms[path] += g.defrag_ms - ms0
+                wide = ep.SYNCS["defrag_wide"] > before["defrag_wide"]
+                width, rows = (ep.DEFRAG_WIDE["width"],
+                               ep.DEFRAG_WIDE["rows"]) if wide else (None, 0)
+                rebuilds.append(dict(cause=cause, path=path,
+                                     ms=g.defrag_ms - ms0, wide_width=width,
+                                     wide_rows=rows))
         return out
 
     def run(si_, di_, w_, tag, rebuild_after=None):
@@ -571,7 +619,7 @@ def phase_main(args, torch):
             hi = min(lo + B, len(si_))
             t = time.perf_counter()
             res = timed_rebuilds(lambda: store.apply(OpBatch.edges(
-                ids[si_[lo:hi]], ids[di_[lo:hi]], w_[lo:hi])))
+                ids[si_[lo:hi]], ids[di_[lo:hi]], w_[lo:hi])), "traffic")
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t) * 1e3)
             if res.dropped:
@@ -580,7 +628,7 @@ def phase_main(args, torch):
                 # one maintenance rebuild while every extent still fits
                 # dmax: the streaming (defrag_rows) path
                 before = ep.SYNCS["defrag_stream"]
-                timed_rebuilds(g.defrag)
+                timed_rebuilds(g.defrag, "explicit")
                 if ep.SYNCS["defrag_stream"] == before:
                     raise AssertionError("explicit rebuild did not stream")
         return time.perf_counter() - t_start
@@ -606,10 +654,19 @@ def phase_main(args, torch):
     n_edges = store.read(ReadOp("num_edges"))
     torch.cuda.synchronize()
     launches = kops.launch_counts()
+    calls = kops.call_counts()
     host_ns = kops.host_ns()
     untally()
     syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
     peak = torch.cuda.max_memory_allocated()
+    # every rebuild streams: the wide tier takes hubs past dmax
+    if syncs["defrag_dense"] or any(r["path"] != "defrag_stream"
+                                    for r in rebuilds):
+        raise AssertionError(f"a rebuild took the dense path: {rebuilds}")
+
+    vt_f = g.state.vt
+    sz_final = torch.where((vt_f.del_time == 0) & (vt_f.start_block >= 0),
+                           vt_f.size, 0)
 
     # ---- checks against the host oracle ----
     t0 = time.perf_counter()
@@ -661,24 +718,84 @@ def phase_main(args, torch):
         defrag_dense=syncs["defrag_dense"],
         defrag_stream_ms=rebuild_ms["defrag_stream"],
         defrag_dense_ms=rebuild_ms["defrag_dense"],
+        defrag_wide=syncs["defrag_wide"], rebuilds=rebuilds,
+        widest_extent_final=int(sz_final.max()),
+        widest_wide_tier=max([r["wide_width"] or 0 for r in rebuilds]),
+        batch_max_ms=float(np.max(lat)),
         host_branch_syncs_per_batch=syncs["host_syncs"] / n_batches,
         reads_checked=int(within.sum()),
         reads_4096_s=t_reads, snapshot_s=t_snap,
         peak_memory_bytes=peak, oracle_check_s=t_oracle,
-        launches=launches, host_us_per_launch={
-            k: host_ns[k] / 1e3 / launches[k] for k in launches
-            if launches[k]},
+        launches=launches, calls=calls, host_us_per_call={
+            k: host_ns[k] / 1e3 / calls[k] for k in calls if calls[k]},
         compactor_calls_by_shape={"x".join(map(str, k)): v
                                   for k, v in tally.items()},
         oracle="agrees")
     return store, ids, sample, launches, tally
 
 
-def phase_kernels(store, ids, sample, launches, tally, torch, parent):
+def phase_rebuild_check(store, torch):
+    """The main path's final state rebuilt from two copies: by the dense
+    reference (``_defrag_dense``, a full-pool lexsort in plain PyTorch) and
+    by the streaming path (``defrag``: size segments and the wide tier
+    through ``defrag_rows``). Every leaf of the two must be equal. Returns
+    the streaming rebuild's ``defrag_rows`` calls by shape."""
+    from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import compact as kc
+    g = store.graph
+    spec, st = g.pool_spec, g.state
+    tally = {}       # the streaming rebuild's defrag_rows calls by shape
+
+    def copy(nt):
+        return type(nt)(*[x.clone() for x in nt])
+
+    out, ms, took = {}, {}, {}
+    for path in ("dense", "stream"):
+        pool, vt = copy(st.pool), copy(st.vt)
+        torch.cuda.synchronize()
+        s0 = dict(ep.SYNCS)
+        t0 = time.perf_counter()
+        if path == "dense":
+            out[path] = ep._defrag_dense(spec, pool, vt,
+                                         torch.zeros_like(vt.size))
+        else:
+            untally = tally_shapes(kc, ("defrag_rows",), tally)
+            out[path] = ep.defrag(spec, pool, vt)
+            untally()
+        torch.cuda.synchronize()
+        ms[path] = (time.perf_counter() - t0) * 1e3
+        took[path] = {k: ep.SYNCS[k] - s0[k] for k in s0}
+    if took["stream"]["defrag_stream"] != 1 or \
+            took["stream"]["defrag_dense"] != 0:
+        raise AssertionError(f"the streaming rebuild did not stream: "
+                             f"{took['stream']}")
+    la, lb = leaves(out["dense"]), leaves(out["stream"])
+    if len(la) != len(lb) or not all(torch.equal(a, b)
+                                     for a, b in zip(la, lb)):
+        raise AssertionError("streaming and dense rebuilds of the final "
+                             "state differ")
+    vt = st.vt
+    sz = torch.where((vt.del_time == 0) & (vt.start_block >= 0), vt.size, 0)
+    say("rebuild_check", card=card_line(), identical=True, leaves=len(la),
+        dense_ms=ms["dense"], stream_ms=ms["stream"],
+        wide_tier=took["stream"]["defrag_wide"] == 1,
+        wide_width=ep.DEFRAG_WIDE["width"], wide_rows=ep.DEFRAG_WIDE["rows"],
+        widest_extent=int(sz.max()),
+        extents_past_dmax=int((sz > spec.dmax).sum()),
+        occupied_entries=int(sz.sum()),
+        live_m=int(out["stream"][0].live_m))
+    del out
+    return tally
+
+
+def phase_kernels(store, ids, sample, launches, tally, final_tally,
+                  chase_lib, torch, parent):
     """Each kernel against its plain version at main-path shapes, on
-    inputs taken from the main path's final state. ``parent`` is None or
-    the lookup of ``load_parent``: each wrapper the parent has is timed
-    beside this checkout's."""
+    inputs taken from the main path's final state: ``defrag_rows`` at
+    every (rows, width) shape the path called (``tally``) and at the wide
+    tier of the final state's streaming rebuild (``final_tally``).
+    ``parent`` is None or the lookup of ``load_parent``: each wrapper the
+    parent has is timed beside this checkout's."""
     from repro_torch.core import edgepool as ep
     from repro_torch.core.keys import pack_keys
     from repro_torch.kernels import append as ka, compact as kc, \
@@ -776,8 +893,11 @@ def phase_kernels(store, ids, sample, launches, tally, torch, parent):
         u[:cand.numel()] = cand.to(torch.int32)
         return u
 
-    def compact_case(u, width, name="compact_rows", defrag=False):
+    def compact_case(u, width, name="compact_rows", defrag=False,
+                     old=parent, cut=False):
         d, w, t, s = ep._gather_vertex_entries(spec, st.pool, vt, u, width)
+        if cut:     # extents wider than the rows: their first ``width``
+            s = s.clamp_max(width)
         d, w, t, s = (x.contiguous() for x in (d, w, t, s))
         occupied, last, kept, most = row_work(d, s, w)
         # the bytes this function needs: dst of every occupied entry, the
@@ -794,7 +914,7 @@ def phase_kernels(store, ids, sample, launches, tally, torch, parent):
         else:
             f, fp = "compact_rows", kc.compact_rows_plain
         mine = getattr(kc, f)
-        record(name, [K, width], wrappers(parent, "compact", f, d, w, t, s),
+        record(name, [K, width], wrappers(old, "compact", f, d, w, t, s),
                lambda: fp(d, w, t, s),
                lambda: (list(mine(d, w, t, s)), list(fp(d, w, t, s))),
                nbytes, nops).update(occupied=occupied, last_writers=last,
@@ -803,21 +923,181 @@ def phase_kernels(store, ids, sample, launches, tally, torch, parent):
     compact_case(off.to(torch.int32)[:g.batch].contiguous(), spec.dmax)
     compact_case(rows_of(0, spec.probe_width, spec.k_max), spec.probe_width)
     compact_case(rows_of(spec.probe_width, spec.dmax, spec.k_big), spec.dmax)
-    for W, budget in ep._defrag_tiers(spec, g.n_max):
-        C = ep._defrag_chunks(W, budget)[0][1]
-        compact_case(rows_of(W // 8 if W > spec.block_size else 0, W, C), W,
-                     "defrag_rows", defrag=True)
+    # defrag_rows at every shape the path called: a size segment's chunk
+    # takes random rows of this state from the segment; a wide tier of an
+    # earlier rebuild (wider than the top segment) takes this state's
+    # widest extents, cut to its width. Then the wide tier of this state.
+    widths = [W for W, _ in ep._defrag_tiers(spec, g.n_max)]
+    widest = torch.argsort(sz, descending=True).to(torch.int32)
+    final_wide = {k for k in final_tally if k[2] > widths[-1]}
+    for n, K, W in sorted(set(tally) | final_wide, key=lambda k: k[::-1]):
+        if n != "defrag_rows":
+            continue
+        if W <= widths[-1]:
+            u = rows_of(max([x for x in widths if x < W], default=0), W, K)
+        else:
+            u = widest[:K].contiguous()
+        # the parent's defrag_rows stops at 16384
+        compact_case(u, W, "defrag_rows", defrag=True,
+                     old=parent if W <= 16384 else None, cut=W > widths[-1])
     torch.cuda.synchronize()
     say("kernel_shapes", card=card_line(), shapes=shapes)
+    floor = sort_lookup_floor(chase_lib, pools, keys, kw,
+                              rows["sort_lookup"])
     lines = []
     for name in INGEST_KERNELS:
         loss = None
         if name in ("compact_rows", "defrag_rows"):
-            loss, unmeasured = shape_loss(name, shapes, tally)
+            loss, dev, calls, unmeasured = shape_loss(name, shapes, tally)
+            if unmeasured:
+                raise AssertionError(f"{name}: {unmeasured} calls of the "
+                                     "path at shapes not timed")
             say("loss_by_shape", kernel=name, loss_ms=loss,
-                calls_at_unmeasured_shapes=unmeasured)
+                path_device_ms=dev, path_calls=calls,
+                path_launches=launches[name], by_shape={
+                    "x".join(map(str, e["shape"])): e.get("loss_ms", 0.0)
+                    for e in shapes if e["name"] == name})
         lines.append(kernel_line(name, rows[name], launches[name], loss))
+        if name == "sort_lookup":
+            lines[-1]["latency_floor_ms"] = floor
     return lines
+
+
+# The least a SORT descent of these keys can take with this layout: one
+# dependent load a layer, nothing else. Each key's per-layer slot bits
+# are computed beforehand and loaded up front (independent loads), so
+# the chain holds only the pool loads; 64 threads a block spread the
+# keys over every SM. It stands apart from ``sort_lookup`` so that the
+# floor does not move with the kernel being judged.
+CHASE_CU = r"""
+#include <cuda_runtime.h>
+#define MAX_LAYERS 8
+struct ChaseArgs {
+  const int* pools[MAX_LAYERS];
+  long long sizes[MAX_LAYERS];
+  int bits[MAX_LAYERS];
+  int layers;
+};
+__global__ void chase_kernel(const int* __restrict__ idx,
+                             int* __restrict__ out, int B, ChaseArgs a) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= B) return;
+  int ix[MAX_LAYERS];
+#pragma unroll
+  for (int i = 0; i < MAX_LAYERS; ++i)
+    ix[i] = i < a.layers ? idx[(long long)i * B + k] : 0;
+  long long node = 0;
+#pragma unroll
+  for (int i = 0; i < MAX_LAYERS; ++i) {
+    if (i >= a.layers) break;
+    long long slot = (node << a.bits[i]) + ix[i];
+    slot = slot < a.sizes[i] ? slot : a.sizes[i] - 1;
+    const int child = __ldg(a.pools[i] + slot);
+    if (child < 0) { node = -1; break; }
+    node = child;
+  }
+  out[k] = (int)node;
+}
+extern "C" int chase_launch(const int* idx, int* out, int B,
+                            const void* const* pools, const long long* sizes,
+                            const int* bits, int layers, void* stream) {
+  if (layers < 1 || layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  ChaseArgs a = {};
+  for (int i = 0; i < layers; ++i) {
+    a.pools[i] = (const int*)pools[i];
+    a.sizes[i] = sizes[i];
+    a.bits[i] = bits[i];
+  }
+  a.layers = layers;
+  chase_kernel<<<(B + 63) / 64, 64, 0, (cudaStream_t)stream>>>(idx, out, B,
+                                                                 a);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_chase_build():
+    """Start ``nvcc`` on ``CHASE_CU`` into the kernels' build directory;
+    returns the function that waits for it and loads the library."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels import _build
+    out_dir = _build.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(CHASE_CU.encode()).hexdigest()[:12]
+    src, lib = out_dir / f"chase-{tag}.cu", out_dir / f"chase-{tag}.so"
+    src.write_text(CHASE_CU)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                             str(lib), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the pointer chase:\n{log}")
+        return ctypes.CDLL(str(lib))
+    return wait
+
+
+def sort_lookup_floor(chase_lib, pools, keys, kw, row):
+    """The SORT descent's latency floor, two ways, on the first i layers,
+    i = 1 .. l (device ms from the profiler, and graph ms): the pointer
+    chase of ``CHASE_CU`` (one dependent load a layer, the same pools and
+    keys; its time at l layers is the floor the decision rests on, and its
+    answers must equal ``sort_lookup``'s), and ``sort_lookup`` itself,
+    whose least-squares slope is its own cost of a layer."""
+    import ctypes
+    import torch
+    from repro_torch.core.keys import extract_bits
+    from repro_torch.kernels import ops as kops, sort_lookup as ks
+    L, B = len(pools), int(keys.shape[0])
+    idx = torch.stack([extract_bits(keys, o, a) for a, o in
+                       zip(kw["fanout_bits"], kw["bit_offsets"])]).contiguous()
+    out = torch.empty(B, dtype=torch.int32, device=keys.device)
+    fn = chase_lib.chase_launch
+    fn.restype = ctypes.c_int
+    chased = [0]
+
+    def chase(i):
+        arr = (ctypes.c_void_p * i)(*[p.data_ptr() for p in pools[:i]])
+        sizes = (ctypes.c_longlong * i)(*[p.shape[0] for p in pools[:i]])
+        bits = (ctypes.c_int * i)(*kw["fanout_bits"][:i])
+        rc = fn(ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(
+            out.data_ptr()), B, arr, sizes, bits, i, ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"pointer chase: CUDA error {rc}")
+        chased[0] += 1
+        return out
+
+    chase(L)
+    if not torch.equal(out, ks.sort_lookup(pools, keys, **kw)):
+        raise AssertionError("the pointer chase and sort_lookup disagree")
+    lookup_launched = (lambda: kops.launch_counts()["sort_lookup"])
+    fit = {}
+    for what, make, launched in (
+            ("chase", lambda i: (lambda: chase(i)), lambda: chased[0]),
+            ("sort_lookup", lambda i: (lambda p=pools[:i], k=dict(
+                fanout_bits=kw["fanout_bits"][:i],
+                bit_offsets=kw["bit_offsets"][:i]):
+                ks.sort_lookup(p, keys, **k)), lookup_launched)):
+        dev = [device_ms(make(i), launched)["device_ms"]
+               for i in range(1, L + 1)]
+        gr = [graph_ms(make(i)) for i in range(1, L + 1)]
+        slope, icpt = np.polyfit(np.arange(1, L + 1), dev, 1)
+        fit[what] = dict(device_ms_by_layers=dev, graph_ms_by_layers=gr,
+                         slope_device_ms=float(slope),
+                         intercept_device_ms=float(icpt))
+    floor = fit["chase"]["device_ms_by_layers"][-1]
+    say("sort_lookup_floor", card=card_line(), layers=L, keys=B,
+        chase=fit["chase"], sort_lookup=fit["sort_lookup"],
+        latency_floor_ms=floor,
+        latency_floor_graph_ms=fit["chase"]["graph_ms_by_layers"][-1],
+        self_slope_floor_ms=L * fit["sort_lookup"]["slope_device_ms"],
+        bound_ms=row["bound_ms"], device_ms=row["device_ms"],
+        share_of_floor=floor / row["device_ms"],
+        binds="latency" if floor > row["bound_ms"] else "bytes")
+    return floor
 
 
 def _ev_attr(e, *names):
@@ -830,10 +1110,13 @@ def _ev_attr(e, *names):
 def phase_profile(store, ids, torch, n_batches=16):
     """Where a steady-state batch's time goes: ``n_batches`` mixed batches
     under ``torch.profiler`` (host ops by self CPU time, device busy
-    share), then one explicit rebuild and one snapshot, timed alone."""
+    share), then one explicit rebuild and one snapshot, timed alone, and
+    one more rebuild whose ``defrag_rows`` calls are timed alone on their
+    own inputs."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import OpBatch, ReadOp
     from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import compact as kc, ops as kops
     g = store.graph
     rng = np.random.default_rng(3)
     _, si, di = powerlaw_stream(rng, LJ_VERTICES, (n_batches + 2) * g.batch,
@@ -880,9 +1163,33 @@ def phase_profile(store, ids, torch, n_batches=16):
     t0 = time.perf_counter()
     m = int(store.read(ReadOp("snapshot")).m)
     torch.cuda.synchronize()
+    snap_s = time.perf_counter() - t0
+    # one more rebuild with its defrag_rows calls' inputs kept, then each
+    # call timed alone on those inputs: the rebuild's kernel time at its
+    # own shapes and data (a profiler trace of the rebuild itself keeps
+    # too few of its kernel events to sum)
+    calls = []
+    orig = kc.defrag_rows
+
+    def keep(*a, **kw):
+        calls.append(([x.clone() if torch.is_tensor(x) else x for x in a],
+                      kw))
+        return orig(*a, **kw)
+    kc.defrag_rows = keep
+    try:
+        g.defrag()
+    finally:
+        kc.defrag_rows = orig
+    launched = (lambda: kops.launch_counts()["defrag_rows"])
+    timed = [device_ms(lambda a=a, kw=kw: orig(*a, **kw), launched, reps=5)
+             for a, kw in calls]
     say("profile_rebuild", card=card_line(), defrag_s=t_defrag,
-        defrag_path=path, snapshot_s=time.perf_counter() - t0,
-        snapshot_m=m)
+        defrag_path=path, snapshot_s=snap_s, snapshot_m=m,
+        defrag_rows_calls=len(calls),
+        defrag_rows_launches=sum(t["kernels_per_call"] for t in timed),
+        defrag_rows_device_ms=sum(t["device_ms"] for t in timed),
+        least_events_kept=min(t["profiler_events_kept"] for t in timed))
+    del calls
 
 
 def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None):
@@ -1458,11 +1765,12 @@ def main(argv=None):
             analytics_edges=args.analytics_edges)
 
     t0 = time.perf_counter()
-    phase_build()
+    chase_lib = phase_build()
     parent = load_parent(args.parent) if args.parent else None
     store, ids, sample, launches, tally = phase_main(args, torch)
-    kernels = phase_kernels(store, ids, sample, launches, tally, torch,
-                            parent)
+    final_tally = phase_rebuild_check(store, torch)
+    kernels = phase_kernels(store, ids, sample, launches, tally, final_tally,
+                            chase_lib, torch, parent)
     phase_profile(store, ids, torch)
     del store
     torch.cuda.empty_cache()

@@ -17,7 +17,14 @@ for bit. Two things differ in form:
   device: the defrag-vs-fast-path choice once per batch, and the
   streaming rebuild's segment populations once per rebuild. ``SYNCS``
   counts them (``SYNCS["host_syncs"]``) together with the rebuild path
-  taken (``defrag_stream`` / ``defrag_dense``).
+  taken (``defrag_stream`` / ``defrag_dense``, and ``defrag_wide`` for a
+  streaming rebuild that ran its wide tier).
+
+Where JAX's ``defrag`` falls back to its dense rebuild (an extent wider
+than ``dmax``, a size segment past its static budget), the port keeps
+streaming: an open-ended wide tier and extra chunks, through the same
+``defrag_rows`` kernel. The answer is the same (JAX's own stream == dense
+parity), and only ``defrag_impl='dense'`` runs the dense reference.
 """
 from __future__ import annotations
 
@@ -33,13 +40,20 @@ from .tensor_ops import (I32, I64, cdiv, lexsort, nonzero_static,
 from .vertex_table import VertexTable
 
 __all__ = ["EdgePool", "PoolSpec", "make_edge_pool", "apply_edge_updates",
-           "get_neighbors", "live_edges", "defrag", "SYNCS"]
+           "get_neighbors", "live_edges", "defrag", "SYNCS", "DEFRAG_WIDE"]
 
 INT_MAX = 0x7FFFFFFF
 
 # host round trips the eager port pays where JAX branches on device
 SYNCS: Dict[str, int] = {"host_syncs": 0, "defrag_stream": 0,
-                         "defrag_dense": 0}
+                         "defrag_dense": 0, "defrag_wide": 0}
+# the wide tier of the last rebuild that ran one (SYNCS["defrag_wide"])
+DEFRAG_WIDE: Dict[str, int] = {"width": 0, "rows": 0}
+
+# the most bytes of gathered (dst, w, ts) entries, 12 bytes each, one
+# streaming-rebuild chunk holds: (K, W) chunks of a segment stay under it
+# (down to one row), so one enormous extent cannot take the card's memory
+CHUNK_BYTES = 256 << 20
 
 
 def _fetch(*ts: torch.Tensor):
@@ -498,14 +512,16 @@ def _defrag_tiers(spec: PoolSpec, n_cap: int):
 
 
 def _defrag_chunks(width: int, budget: int):
-    """Geometric (start, rows) chunk schedule of one size segment."""
-    c = max(32, min(budget, 65536 // max(width, 1)))
+    """Geometric (start, rows) chunk schedule of one size segment, each
+    chunk's (rows, width) gather under ``CHUNK_BYTES``."""
+    most = max(1, CHUNK_BYTES // (12 * max(width, 1)))
+    c = min(max(32, min(budget, 65536 // max(width, 1))), most)
     chunks, lo = [], 0
     while lo < budget:
         c = min(c, budget - lo)
         chunks.append((lo, c))
         lo += c
-        c *= 2
+        c = min(2 * c, most)
     return chunks
 
 
@@ -573,10 +589,12 @@ def defrag(spec: PoolSpec, pool: EdgePool, vt: VertexTable,
     (owner, dst), tombstones and edges from/to deleted vertices dropped,
     deleted rows recycled, each live vertex pre-sized for ``incoming``.
 
-    The streaming rebuild handles every state whose live extents fit the
-    size segments; anything else — and ``defrag_impl='dense'`` — runs the
-    dense reference. Both give identical states. One host sync decides
-    the path and which streaming chunks run."""
+    The streaming rebuild handles every state: a size segment holding more
+    rows than its static budget runs more chunks, and live extents wider
+    than the top segment form a wide tier as wide as the widest of them
+    (rounded up to the block size). ``defrag_impl='dense'`` runs the dense
+    reference; both give identical states. One host sync fetches the
+    segment populations and the widest extent."""
     n_cap = vt.size.shape[0]
     if incoming is None:
         incoming = torch.zeros((n_cap,), dtype=I32, device=vt.size.device)
@@ -590,12 +608,18 @@ def defrag(spec: PoolSpec, pool: EdgePool, vt: VertexTable,
     for W, _ in tiers:
         masks.append(live_row & (sz > prev) & (sz <= W))
         prev = W
-    *pops, max_sz = _fetch(*[_sum(m) for m in masks], sz.max())
-    stream_ok = all(p <= Bj for p, (_, Bj) in zip(pops, tiers)) and \
-        max_sz <= tiers[-1][0]
-    if stream_ok:
-        return _defrag_stream(spec, pool, vt, incoming, tiers, masks, pops)
-    return _defrag_dense(spec, pool, vt, incoming)
+    wide = live_row & (sz > prev)
+    *pops, n_wide, max_sz = _fetch(*[_sum(m) for m in masks], _sum(wide),
+                                   sz.max())
+    tiers = [(W, max(Bj, p)) for (W, Bj), p in zip(tiers, pops)]
+    if n_wide:
+        SYNCS["defrag_wide"] += 1
+        width = cdiv(max_sz, spec.block_size) * spec.block_size
+        DEFRAG_WIDE.update(width=width, rows=n_wide)
+        tiers.append((width, n_wide))
+        masks.append(wide)
+        pops.append(n_wide)
+    return _defrag_stream(spec, pool, vt, incoming, tiers, masks, pops)
 
 
 # --------------------------------------------------------------------------

@@ -9,10 +9,12 @@ name carries a hash of its source, so an edited source rebuilds.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` holds one plain launch counter per kernel wrapper: each
-wrapper adds one where it launches its kernel (``launch``), and nowhere
-else. ``HOST_NS`` sums, over the same launches, the wrapper's host time
-from its entry to the return of the launch: checks, allocations and the
-ctypes call, not the kernel's run on the card.
+wrapper adds one for each kernel it launches (``launch``), and nowhere
+else. ``CALLS`` counts the wrapper calls that launched (a wide
+``defrag_rows`` call launches several kernels), and ``HOST_NS`` sums,
+over the same calls, the wrapper's host time from its entry to the
+return of the launch: checks, allocations and the ctypes call, not the
+kernels' run on the card.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["SOURCES", "LAUNCHES", "HOST_NS", "build_dir", "build", "load",
-           "check_rc", "check_tensor", "launch"]
+__all__ = ["SOURCES", "LAUNCHES", "CALLS", "HOST_NS", "build_dir", "build",
+           "load", "check_rc", "check_tensor", "launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = {"append": "append.cu", "compact": "compact.cu",
@@ -38,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"append": 0, "compact_rows": 0,
                             "defrag_rows": 0, "sort_lookup": 0,
                             "frontier_expand": 0}
+CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 HOST_NS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -124,11 +127,13 @@ def check_rc(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def launch(what: str, fn, device, args, t0: int):
+def launch(what: str, fn, device, args, t0: int, count=1):
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream, raise when it reports a CUDA error, then count the launch and
-    the wrapper's host time since ``t0`` (its ``time.perf_counter_ns()``
-    at entry). The device is entered only when it is not current."""
+    stream, raise when it reports a CUDA error, then count the launches
+    (``count``: an int, or a ``ctypes.c_int`` the entry point set to the
+    kernels it launched), the call, and the wrapper's host time since
+    ``t0`` (its ``time.perf_counter_ns()`` at entry). The device is
+    entered only when it is not current."""
     idx = device.index
     if idx == torch.cuda.current_device():
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
@@ -136,5 +141,6 @@ def launch(what: str, fn, device, args, t0: int):
         with torch.cuda.device(idx):
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     check_rc(rc, what)
-    LAUNCHES[what] += 1
+    LAUNCHES[what] += count if isinstance(count, int) else count.value
+    CALLS[what] += 1
     HOST_NS[what] += time.perf_counter_ns() - t0

@@ -1,7 +1,7 @@
 """Row compactors: log compaction (paper Alg. 2) and the defrag row pass.
 
 ``compact_rows`` and ``defrag_rows`` are the wrappers: on CUDA tensors
-they launch the kernel of ``csrc/compact.cu`` (port of the TPU kernels
+they launch the kernels of ``csrc/compact.cu`` (port of the TPU kernels
 ``compact_rows_pallas`` and ``defrag_rows_pallas``) or raise; on CPU
 tensors they run ``compact_rows_plain`` / ``defrag_rows_plain``, plain
 PyTorch versions of the same functions (translations of
@@ -10,7 +10,8 @@ PyTorch versions of the same functions (translations of
 Inputs are (K, D) rows — destination offsets (-1 empty), weights (0 =
 NULL tombstone, float32 or bfloat16), timestamps — with ``size`` (K,)
 the occupied prefix. An entry whose destination offset is 2^30 or more
-counts as empty, as in the oracles.
+counts as empty, as in the oracles. ``compact_rows`` takes rows up to
+``MAX_ROW_WIDTH`` wide, ``defrag_rows`` rows of any width.
 """
 from __future__ import annotations
 
@@ -27,10 +28,9 @@ __all__ = ["compact_rows", "compact_rows_plain", "defrag_rows",
 
 BIGD = 2 ** 30
 # compact_rows rows up to 8192 wide take the kernel's hash-table path;
-# wider ones, and defrag_rows, its sort path (12 bytes of shared memory per
-# padded entry)
+# wider ones its sort path (12 bytes of shared memory per padded entry).
+# defrag_rows takes rows of any width.
 MAX_ROW_WIDTH = 16384
-
 
 def _sorted_rows(dst, w, ts, size, read_ts=None):
     K, D = dst.shape
@@ -83,47 +83,43 @@ def defrag_rows_plain(dst, w, ts, size, keep_all: bool = False):
     return outs[0], outs[1], outs[2], count, live
 
 
-def _lib():
-    fn = _build.load("compact").rows_launch
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load("compact"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+def _scratch_sizes():
+    """The C function that sizes a ``defrag_rows`` launch's scratch (int64
+    keys and int32 tile counts, none when the rows fit one block)."""
+    fn = _build.load("compact").defrag_scratch
+    if fn.argtypes is None:
+        fn.argtypes = [_i, _i, ctypes.POINTER(_ll), ctypes.POINTER(_ll)]
+        fn.restype = None
+    return fn
+
+
+_COMPACT_ARGS = [_i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _p]
+_DEFRAG_ARGS = [_i, _p, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _p, _ll,
+                _p, _ll, ctypes.POINTER(_i), _p]
 _WDTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _WDTYPES = tuple(_WDTYPE)
 
 
-def _launch(mode: int, dst, w, ts, size, read_ts, keep_all: bool):
-    t0 = time.perf_counter_ns()
-    name = "compact_rows" if mode == 0 else "defrag_rows"
-    dev = dst.device
+def _check(name, dst, w, ts, size):
     if dst.dim() != 2:
         raise ValueError(f"{name}: rows must be 2-D, got {tuple(dst.shape)}")
-    shape = dst.shape
-    K, D = shape
+    shape, dev = dst.shape, dst.device
     _build.check_tensor(dst, (I32,), shape, "dst", dev, name)
     _build.check_tensor(w, _WDTYPES, shape, "w", dev, name)
     _build.check_tensor(ts, (I32,), shape, "ts", dev, name)
-    _build.check_tensor(size, (I32,), (K,), "size", dev, name)
-    if D > MAX_ROW_WIDTH:
-        raise ValueError(f"{name}: row width {D} > {MAX_ROW_WIDTH}")
-    odst, ow, ots = (torch.empty_like(dst), torch.empty_like(w),
-                     torch.empty_like(ts))
-    ocnt = torch.empty_like(size)
-    olive = torch.empty_like(size) if mode == 1 else None
-    if K == 0 or D == 0:
-        ocnt.zero_()
-        return odst, ow, ots, ocnt, None if olive is None else olive.zero_()
-    rt = 0 if read_ts is None else int(read_ts)
-    _build.launch(name, _lib(), dev, (
-        mode, _WDTYPE[w.dtype], dst.data_ptr(), w.data_ptr(), ts.data_ptr(),
-        size.data_ptr(), K, D, int(read_ts is not None), rt, int(keep_all),
-        odst.data_ptr(), ow.data_ptr(), ots.data_ptr(), ocnt.data_ptr(),
-        None if olive is None else olive.data_ptr()), t0)
-    return odst, ow, ots, ocnt, olive
+    _build.check_tensor(size, (I32,), (shape[0],), "size", dev, name)
+    return shape
 
 
 def compact_rows(dst, w, ts, size, read_ts=None):
@@ -131,12 +127,52 @@ def compact_rows(dst, w, ts, size, read_ts=None):
     tensors. ``read_ts`` (a host int) keeps only entries with ts <= it."""
     if not dst.is_cuda:
         return compact_rows_plain(dst, w, ts, size, read_ts)
-    return _launch(0, dst, w, ts, size, read_ts, False)[:4]
+    t0 = time.perf_counter_ns()
+    K, D = _check("compact_rows", dst, w, ts, size)
+    if D > MAX_ROW_WIDTH:
+        raise ValueError(f"compact_rows: row width {D} > {MAX_ROW_WIDTH}")
+    odst, ow, ots = (torch.empty_like(dst), torch.empty_like(w),
+                     torch.empty_like(ts))
+    ocnt = torch.empty_like(size)
+    if K == 0 or D == 0:
+        return odst, ow, ots, ocnt.zero_()
+    rt = 0 if read_ts is None else int(read_ts)
+    _build.launch("compact_rows", _fn("compact_launch", _COMPACT_ARGS),
+                  dst.device, (
+                      _WDTYPE[w.dtype], dst.data_ptr(), w.data_ptr(),
+                      ts.data_ptr(), size.data_ptr(), K, D,
+                      int(read_ts is not None), rt, odst.data_ptr(),
+                      ow.data_ptr(), ots.data_ptr(), ocnt.data_ptr()), t0)
+    return odst, ow, ots, ocnt
 
 
 def defrag_rows(dst, w, ts, size, keep_all: bool = False):
-    """Kernel wrapper: CUDA kernel on CUDA tensors (``keep_all`` included),
-    plain version on CPU tensors."""
+    """Kernel wrapper: CUDA kernels on CUDA tensors (any row width,
+    ``keep_all`` included), plain version on CPU tensors. Rows wider than
+    the kernel's in-block sort take scratch from ``torch.empty``; every
+    kernel of a call counts as a launch."""
     if not dst.is_cuda:
         return defrag_rows_plain(dst, w, ts, size, keep_all)
-    return _launch(1, dst, w, ts, size, None, keep_all)
+    t0 = time.perf_counter_ns()
+    K, D = _check("defrag_rows", dst, w, ts, size)
+    dev = dst.device
+    odst, ow, ots = (torch.empty_like(dst), torch.empty_like(w),
+                     torch.empty_like(ts))
+    ocnt, olive = torch.empty_like(size), torch.empty_like(size)
+    if K == 0 or D == 0:
+        return odst, ow, ots, ocnt.zero_(), olive.zero_()
+    nk, nt = _ll(0), _ll(0)
+    _scratch_sizes()(K, D, ctypes.byref(nk), ctypes.byref(nt))
+    keys = torch.empty((nk.value,), dtype=torch.int64, device=dev) \
+        if nk.value else None
+    tiles = torch.empty((nt.value,), dtype=I32, device=dev) \
+        if nt.value else None
+    launches = _i(0)
+    _build.launch("defrag_rows", _fn("defrag_launch", _DEFRAG_ARGS), dev, (
+        _WDTYPE[w.dtype], dst.data_ptr(), w.data_ptr(), ts.data_ptr(),
+        size.data_ptr(), K, D, int(keep_all), odst.data_ptr(), ow.data_ptr(),
+        ots.data_ptr(), ocnt.data_ptr(), olive.data_ptr(),
+        None if keys is None else keys.data_ptr(), nk.value,
+        None if tiles is None else tiles.data_ptr(), nt.value,
+        ctypes.byref(launches)), t0, count=launches)
+    return odst, ow, ots, ocnt, olive

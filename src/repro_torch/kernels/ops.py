@@ -26,7 +26,7 @@ from . import sort_lookup as _sort_lookup
 
 __all__ = ["append_edges", "compact_rows", "defrag_rows", "sort_lookup",
            "frontier_expand", "append_tile_rows", "launch_counts",
-           "host_ns", "reset_launch_counts"]
+           "call_counts", "host_ns", "reset_launch_counts"]
 
 append_tile_rows = _append.append_tile_rows
 _KERNEL = ("auto", "pallas")
@@ -84,14 +84,20 @@ def launch_counts() -> Dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def call_counts() -> Dict[str, int]:
+    """Wrapper calls that launched, per wrapper, since the last reset."""
+    return dict(_build.CALLS)
+
+
 def host_ns() -> Dict[str, int]:
-    """Host nanoseconds per wrapper, summed over its launches since the
-    last reset (checks, allocations and the ctypes call)."""
+    """Host nanoseconds per wrapper, summed over its calls since the last
+    reset (checks, allocations and the ctypes call)."""
     return dict(_build.HOST_NS)
 
 
 def reset_launch_counts():
-    """Zero the launch counts and their host time."""
+    """Zero the launch and call counts and their host time."""
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
+        _build.CALLS[k] = 0
         _build.HOST_NS[k] = 0

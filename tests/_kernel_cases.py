@@ -25,6 +25,10 @@ DEFRAG_CASES = ("lims_512", "lims_4096", "one_dst", "tombstones", "collide",
                 "big_dst", "max_width")
 APPEND_CASES = ("extents", "extents_bs6", "no_probes", "no_ops", "empty",
                 "out_of_range", "pool_end")
+# defrag_rows launches wider than 4,096: rows past 4,096 entries are
+# sorted in runs of 4,096 in device memory and merged
+WIDE_CASES = ("hub", "tombstones", "sparse", "keep_all_dups", "bf16")
+WIDE_WIDTHS = (20000, 2 ** 15)
 
 
 def _rows(rng, sizes, D, n_dst):
@@ -82,6 +86,36 @@ def rows_case(name: str, seed: int = 0) -> dict:
     if name == "max_width":         # MAX_ROW_WIDTH: the sort path
         return _rows(rng, [0, 300, 9000, 16384], 16384, 8192)
     raise KeyError(name)
+
+
+def wide_rows_case(name: str, D: int, seed: int = 0) -> dict:
+    """Three (K = 3) rows of width ``D`` > 16,384 for ``defrag_rows``:
+
+    * ``hub``: one destination rewritten thousands of times among others
+      (size > D clamps), a row of that one destination only, a row of
+      16,385 entries;
+    * ``tombstones``: only tombstones, so nothing survives;
+    * ``sparse``: occupancies far below D, around the run of 4,096 (5,
+      4,096: one block each; 4,097: two runs, one of one entry);
+    * ``keep_all_dups``: few destinations, each repeated, for ``keep_all``;
+    * ``bf16``: bfloat16 weights (values exact in bfloat16)."""
+    rng = np.random.default_rng([seed, D, WIDE_CASES.index(name)])
+    sizes = {"hub": [D + 100, D - 7, 16385], "tombstones": [D, D // 2, 17000],
+             "sparse": [5, 4096, 4097], "keep_all_dups": [D, 16390, D - 1],
+             "bf16": [D, D // 2 + 3, 700]}[name]
+    n_dst = {"keep_all_dups": 50}.get(name, 8 * D)
+    c = _rows(rng, sizes, D, n_dst)
+    if name == "hub":
+        hub = rng.random((3, D)) < 0.5
+        c["dst"][0] = np.where(hub[0], 7, c["dst"][0])
+        c["dst"][1] = 7
+    elif name == "tombstones":
+        c["w"][:] = 0.0
+    elif name == "bf16":
+        c["wdtype"] = "bfloat16"
+        c["w"] = (c["w"] * rng.choice([0.5, 1.5], c["w"].shape)).astype(
+            np.float32)
+    return c
 
 
 def append_case(name: str, seed: int = 0, owners: int = 24,

@@ -213,9 +213,14 @@ def test_graph_state_parity_every_batch(policy, append_impl, defrag_impl):
     n_edge_batches = sum(op[0] == "edges" for op in _waves())
     assert tep.SYNCS["host_syncs"] - s0["host_syncs"] >= n_edge_batches
     if defrag_impl == "auto" and policy == "snaplog":
+        # the hub past dmax, which sends JAX to its dense rebuild, streams
+        # through the port's wide tier
         assert tep.SYNCS["defrag_stream"] > s0["defrag_stream"]
-        assert tep.SYNCS["defrag_dense"] > s0["defrag_dense"]
+        assert tep.SYNCS["defrag_wide"] > s0["defrag_wide"]
+        assert tep.SYNCS["defrag_dense"] == s0["defrag_dense"]
         assert int(tg.state.vt.free_head) > 0     # free-ring reuse
+    if defrag_impl == "dense":
+        assert tep.SYNCS["defrag_dense"] > s0["defrag_dense"]
 
 
 def test_large_scatter_path_parity(monkeypatch):
@@ -268,6 +273,66 @@ def test_fold_bitmap_matches_jax():
     np.testing.assert_array_equal(np.asarray(jfk), tfk.numpy())
     assert_same_state(type(jg.state)(jg.state.sort, jv, jp),
                       type(tstate)(tstate.sort, tv, tp), "fold")
+
+
+def _state_for_rebuild(kind, policy):
+    """A JAX graph whose next rebuild JAX runs densely: ``wide`` holds a
+    hub past ``dmax``; ``budget`` holds more rows of 9-64 entries than
+    that size segment's static budget (64, at n_cap = 256)."""
+    if kind == "wide":
+        kw = dict(BASE, policy=policy, append_impl="pallas")
+        jg = JG(**kw)
+        for op in _waves()[:12]:
+            _apply(jg, op)
+        return kw, jg
+    kw = dict(BASE, policy=policy, append_impl="pallas", n_max=256,
+              expected_n=200, batch=256, pool_blocks=2048)
+    jg = JG(**kw)
+    rng = np.random.default_rng(11)
+    src = rng.permutation(np.repeat(np.arange(100), 14)).astype(np.uint64)
+    dst = rng.integers(0, 200, src.size).astype(np.uint64)
+    w = rng.uniform(0.5, 2, src.size).astype(np.float32)
+    w[rng.random(src.size) < 0.1] = 0.0
+    jg.apply_ops(src, dst, w)
+    return kw, jg
+
+
+@pytest.mark.parametrize("kind", ["wide", "budget"])
+@pytest.mark.parametrize("policy", ["snaplog", "grow", "sorted"])
+def test_defrag_streams_where_jax_rebuilds_densely(kind, policy):
+    """JAX's ``defrag`` takes its dense rebuild on these states; the port's
+    auto ``defrag`` streams (the wide tier, or extra chunks past a
+    segment's budget) and leaves the same pool and vertex table, leaf for
+    leaf, with pending ``incoming`` ops."""
+    kw, jg = _state_for_rebuild(kind, policy)
+    spec_j = jg.pool_spec
+    spec_t = TG(device="cpu", **kw).pool_spec
+    tstate = state_from_numpy(jax.tree.map(np.asarray, jg.state), "cpu")
+    vt = tstate.vt
+    n_cap = vt.size.shape[0]
+    live = ((vt.del_time == 0) & (vt.start_block >= 0)).numpy()
+    size = vt.size.numpy()
+    tiers = tep._defrag_tiers(spec_t, n_cap)
+    if kind == "wide":
+        assert size[live].max() > tiers[-1][0]
+    else:
+        (_, _), (W1, B1) = tiers[:2]
+        assert (live & (size > tiers[0][0]) & (size <= W1)).sum() > B1
+    inc = np.random.default_rng(3).integers(0, 20, n_cap).astype(np.int32)
+    jp, jv = jep.defrag(spec_j, jg.state.pool, jg.state.vt, jnp.asarray(inc))
+    s0 = dict(tep.SYNCS)
+    tp, tv = tep.defrag(spec_t, tstate.pool, tstate.vt, _t(inc))
+    assert tep.SYNCS["defrag_stream"] == s0["defrag_stream"] + 1
+    assert tep.SYNCS["defrag_dense"] == s0["defrag_dense"]
+    assert tep.SYNCS["defrag_wide"] == s0["defrag_wide"] + (kind == "wide")
+    if kind == "wide":      # the wide tier it ran: every extent past the
+        bs = spec_t.block_size  # top segment, as wide as the widest
+        assert tep.DEFRAG_WIDE == dict(
+            width=-(-int(size[live].max()) // bs) * bs,
+            rows=int((live & (size > tiers[-1][0])).sum()))
+    assert_same_state(type(jg.state)(jg.state.sort, jv, jp),
+                      type(tstate)(tstate.sort, tv, tp), f"{kind} defrag")
+    assert int(tp.live_m) > 0
 
 
 def test_pipelined_steps_equal_sequential_steps():

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from _kernel_cases import (APPEND_ARGS, APPEND_CASES, COMPACT_CASES,
-                           DEFRAG_CASES, append_case, edge_pool_append_calls,
-                           rows_case, writes_outside_probes)
+                           DEFRAG_CASES, WIDE_CASES, append_case,
+                           edge_pool_append_calls, rows_case, wide_rows_case,
+                           writes_outside_probes)
 from repro_torch.core.keys import pack_keys as tpack_keys
 from repro_torch.core.sort_optimizer import optimize_sort
 from repro_torch.kernels.append import append_edges, append_edges_plain
@@ -70,7 +71,8 @@ def test_compact_rows_kernel_on_card(cuda_device, K, D, wdtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,D", [(1, 8), (4, 16), (64, 128), (32, 4096)])
+@pytest.mark.parametrize("K,D", [(1, 8), (4, 16), (64, 128), (32, 4096),
+                                 (2000, 1024)])
 @pytest.mark.parametrize("keep_all", [False, True])
 def test_defrag_rows_kernel_on_card(cuda_device, K, D, keep_all):
     dst, w, ts, size = _rows(K * 3 + D, K, D, n_cap=max(64, D // 2))
@@ -146,6 +148,80 @@ def test_defrag_rows_edge_cases_on_card(cuda_device, case):
         torch.cuda.synchronize()
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("D", [16385, 65536, 2 ** 17])
+def test_defrag_rows_wide_rows_on_card(cuda_device, case, D):
+    """Launches wider than 4,096: rows past 4,096 entries sorted in runs
+    of 4,096, merged (3, 4 and 5 passes), then counted, scanned and
+    written; rows of at most 4,096 entries in the same launch done whole
+    by one block. With and without ``keep_all``; every kernel of a call is
+    counted."""
+    from repro_torch.kernels import ops
+    c = wide_rows_case(case, D)
+    args = _cuda(_t(c["dst"], c["w"], c["ts"], c["size"]), cuda_device)
+    args[1] = args[1].to(getattr(torch, c["wdtype"]))
+    merges = int(np.ceil(np.log2(-(-D // 4096))))
+    for keep_all in (False, True):
+        before = ops.launch_counts()["defrag_rows"]
+        calls = ops.call_counts()["defrag_rows"]
+        a = defrag_rows(*args, keep_all=keep_all)
+        assert ops.launch_counts()["defrag_rows"] == before + 4 + merges
+        assert ops.call_counts()["defrag_rows"] == calls + 1
+        b = defrag_rows_plain(*args, keep_all=keep_all)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_streaming_rebuild_equals_dense_with_wide_hubs_on_card(cuda_device):
+    """A card-resident store whose two hubs pass ``dmax`` and 16,384
+    entries (a wide launch, sorted runs merged): after every batch, the
+    streaming
+    rebuild (wide tier through ``defrag_rows``) and the dense reference
+    leave the same pool and vertex table, leaf for leaf."""
+    from dataclasses import replace
+    from repro_torch.api import OpBatch, make_store
+    from repro_torch.core import edgepool as ep
+    rng = np.random.default_rng(4)
+    n, m = 20000, 3 * 4096
+    ids = rng.choice(2 ** 32, n, replace=False).astype(np.uint64)
+    store = make_store("local", device=cuda_device, n_max=32768,
+                       expected_n=n, key_bits=32, pool_blocks=1 << 17,
+                       block_size=16, batch=4096, dmax=512, k_max=32,
+                       k_big=4, probe_width=64)
+    g = store.graph
+
+    def clone(nt):
+        return type(nt)(*[x.clone() for x in nt])
+
+    def leaves(pool, vt):
+        return [*pool, *vt]
+
+    widest, w0 = 0, ep.SYNCS["defrag_wide"]
+    for _ in range(10):
+        si = np.where(rng.random(m) < 0.8, rng.integers(0, 2, m),
+                      rng.integers(0, n, m))
+        w = rng.uniform(0.5, 2, m).astype(np.float32)
+        w[rng.random(m) < 0.2] = 0.0
+        store.apply(OpBatch.edges(ids[si], ids[rng.integers(0, n, m)], w))
+        st = g.state
+        live = (st.vt.del_time == 0) & (st.vt.start_block >= 0)
+        widest = max(widest, int(st.vt.size[live].max()))
+        s0 = dict(ep.SYNCS)
+        a = ep.defrag(g.pool_spec, clone(st.pool), clone(st.vt))
+        b = ep.defrag(replace(g.pool_spec, defrag_impl="dense"),
+                      clone(st.pool), clone(st.vt))
+        torch.cuda.synchronize()
+        assert ep.SYNCS["defrag_stream"] == s0["defrag_stream"] + 1
+        assert ep.SYNCS["defrag_dense"] == s0["defrag_dense"] + 1
+        for x, y in zip(leaves(*a), leaves(*b)):
+            assert torch.equal(x, y)
+    assert widest > 16384
+    assert ep.SYNCS["defrag_wide"] > w0
 
 
 @pytest.mark.cuda

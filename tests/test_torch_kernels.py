@@ -22,8 +22,9 @@ from repro.core.sort import SortSpec
 from repro.core.sort_optimizer import optimize_sort
 from repro.kernels import ref as R
 from _kernel_cases import (APPEND_ARGS, APPEND_CASES, COMPACT_CASES,
-                           DEFRAG_CASES, append_case, edge_pool_append_calls,
-                           rows_case, writes_outside_probes)
+                           DEFRAG_CASES, WIDE_CASES, WIDE_WIDTHS,
+                           append_case, edge_pool_append_calls, rows_case,
+                           wide_rows_case, writes_outside_probes)
 from repro_torch.core.keys import pack_keys as tpack_keys
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.append import append_edges, append_edges_plain
@@ -182,6 +183,25 @@ def test_defrag_rows_plain_edge_cases(case, keep_all):
         _eq(x, y)
 
 
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("D", WIDE_WIDTHS)
+@pytest.mark.parametrize("keep_all", [False, True])
+def test_defrag_rows_plain_wide_rows(case, D, keep_all):
+    """Rows past 16,384 entries (the kernel's sorted runs and merges): one
+    hub destination rewritten thousands of times, tombstones only,
+    occupancy far below the width, repeated destinations, bfloat16."""
+    c = wide_rows_case(case, D)
+    wd = c["wdtype"]
+    a = R.defrag_rows_ref(jnp.asarray(c["dst"]), jnp.asarray(c["w"], wd),
+                          jnp.asarray(c["ts"]), jnp.asarray(c["size"]),
+                          keep_all=keep_all)
+    td, tw, tt, tz = _t(c["dst"], c["w"], c["ts"], c["size"])
+    b = defrag_rows_plain(td, tw.to(getattr(torch, wd)), tt, tz,
+                          keep_all=keep_all)
+    for x, y in zip(a, b):
+        _eq(x, y)
+
+
 @pytest.mark.parametrize("case", APPEND_CASES)
 def test_append_plain_edge_cases(case):
     """No probes, no ops, both, out-of-range and negative (wrapping) write
@@ -258,9 +278,10 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     _eq(append_edges(*args_a), append_edges_plain(*args_b))
     for x, y in zip(args_a[:3], args_b[:3]):
         _eq(x, y)
-    before = tops.launch_counts()
+    before, calls = tops.launch_counts(), tops.call_counts()
     tops.compact_rows(td, tw, tt, tz)
     assert tops.launch_counts() == before   # no kernel launched on the CPU
+    assert tops.call_counts() == calls
     with pytest.raises(ValueError):
         tops.compact_rows(td, tw, tt, tz, impl="bogus")
 
