@@ -40,7 +40,26 @@ Phases (any failure raises and the script exits non-zero):
    then ``torch.profiler`` over a few more batches (host ops, device
    busy share), one rebuild and one snapshot timed alone, and one more
    rebuild whose ``defrag_rows`` calls are timed alone on their inputs;
-5. analytics path, on a second store with the same LiveJournal-sized
+5. durability, on the main path's store wrapped in a ``DurableStore``
+   (group commit 32; the directory under ``build/``, removed at the end;
+   the phase fails first if the disk there holds under 3 x a full
+   checkpoint): a full checkpoint, 2^18 mixed ops through the WAL, a
+   checkpoint that must be a delta (one more segment first if a rebuild
+   voided it), 2^16 ops left in the WAL; the WAL's share of the apply
+   time and each checkpoint's bytes and ms (device-to-host copy,
+   touched-block scan, CRC, write + fsync) are printed. Then recovery
+   into a fresh store on the card, launch counters zeroed just before:
+   read + CRC, host-to-device and replay timed, the replay's launches by
+   kernel (``append``, ``compact_rows`` and ``sort_lookup`` must run, no
+   rebuild may go dense); every state leaf equal to the live store's (the
+   pool's entries on owned blocks: a delta leaves blocks vacated since
+   its base with the base's bytes), and lookup / degree / neighbors of
+   4096 IDs and ``num_edges`` equal. Then ``python -m
+   repro_torch.storage.crash_smoke --device cuda`` at the same state size
+   (2^18 ops in batches of 4096, group commit 8, a checkpoint every 21
+   batches): the child dies by SIGKILL, prefix and resumed stream match
+   a control store;
+6. analytics path, on a second store with the same LiveJournal-sized
    state, undirected, after the first is freed: 2^21 powerlaw edges
    (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
    phase writes), then each of the nine registered analytics
@@ -54,11 +73,13 @@ Phases (any failure raises and the script exits non-zero):
    runs made only to time or check; the frontier kernel must have run.
    Then the frontier kernel against its plain version on the largest BFS
    level's inputs (bit-exact);
-6. whole-path parity at small size: the same stream with every kernel, and
+7. whole-path parity at small size: the same stream with every kernel, and
    with every impl forced to its plain version, gives identical state,
    and bfs / khop give identical depths and counts.
 
-The last two lines are the ``kernels`` JSON object and the ``ok`` object.
+The ``kernels`` line gives each kernel's main-path ``launches`` and the
+durability replay's ``replay_launches``. The last two lines are the
+``kernels`` JSON object and the ``ok`` object.
 Nothing here imports JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -105,6 +126,17 @@ LJ_N_MAX = 2 ** 23
 LJ_POOL_BLOCKS = 2 ** 23
 SERVICE_STEPS = 64
 DELTA_EDGES = 4096
+# the main path's store: state sized for SNAP soc-LiveJournal1
+LJ_STORE = dict(device="cuda", n_max=LJ_N_MAX, expected_n=LJ_VERTICES,
+                key_bits=32, pool_blocks=LJ_POOL_BLOCKS, block_size=16)
+# the durability phase: ops applied through the durable store before the
+# delta checkpoint, ops left in the WAL only, the group commit, and the
+# crash smoke's cut stream (a checkpoint every 21 of its 64 batches)
+DURABLE_OPS = 1 << 18
+WAL_ONLY_OPS = 1 << 16
+GROUP_COMMIT = 32
+CRASH_ARGS = ["--scale", "lj", "--ops", str(1 << 18), "--batch", "4096",
+              "--group-commit", "8"]
 
 
 def say(tag, **kw):
@@ -574,9 +606,7 @@ def phase_main(args, torch):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    store = make_store("local", device="cuda", n_max=2 ** 23,
-                       expected_n=LJ_VERTICES, key_bits=32,
-                       pool_blocks=2 ** 23, block_size=16)
+    store = make_store("local", **LJ_STORE)
     g = store.graph
     torch.cuda.synchronize()
     say("store", seconds=round(time.perf_counter() - t0, 3),
@@ -1192,6 +1222,197 @@ def phase_profile(store, ids, torch, n_batches=16):
     del calls
 
 
+def phase_durability(args, store, ids, sample, torch):
+    """The durable path on the main path's store: a full checkpoint, 2^18
+    mixed ops through a ``DurableStore`` (the WAL written before each
+    apply), a delta checkpoint, 2^16 more ops left in the WAL, then
+    recovery into a fresh store on the card (counters zeroed just before)
+    held to the live store, and the crash smoke on a state of the same
+    size in a subprocess. The directory is under ``build/`` and removed
+    at the end. Returns the replay's launches by kernel."""
+    import pathlib
+    import shutil
+    root = pathlib.Path(ROOT) / "build" / "durability"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    full_bytes = nbytes(store.graph.state)
+    free = shutil.disk_usage(root).free
+    if free < 3 * full_bytes:
+        raise AssertionError(
+            f"durability: {free} bytes free under {root}, under 3 x a full "
+            f"checkpoint ({full_bytes} bytes)")
+    try:
+        launches = durable_path(args, store, ids, sample, torch, root,
+                                dict(free_bytes=free,
+                                     full_state_bytes=full_bytes))
+        crash_smoke(args, root / "crash", torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def durable_path(args, store, ids, sample, torch, root, disk):
+    from repro_torch.api import OpBatch, ReadOp, make_store
+    from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import ops as kops
+    from repro_torch.storage import DurableStore, recover
+    from repro_torch.storage.checkpoint import flatten_named
+    from repro_torch.storage.crash_smoke import assert_states_equal
+    g = store.graph
+    B = g.batch
+    ddir = root / "store"
+    dur = DurableStore(store, ddir, group_commit=GROUP_COMMIT)
+    ckpts = []
+
+    def checkpoint(after_ops):
+        parts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man = dur.checkpoint(timings=parts)
+        ms = (time.perf_counter() - t0) * 1e3
+        ckpts.append(dict(
+            after_ops=after_ops, kind=man["kind"], why_full=man["why_full"],
+            bytes=man["bytes"], ms=ms,
+            **{f"{k}_ms": v for k, v in parts.items()},
+            touched_blocks=(man["delta"] or {}).get("n_blocks"),
+            pool_blocks=int(g.state.pool.owner.shape[0])))
+        return man
+
+    rng = np.random.default_rng(args.seed + 7)
+    extra = 16 * B          # one more segment if a rebuild voids the delta
+    n = DURABLE_OPS + extra + WAL_ONLY_OPS
+    _, si, di = powerlaw_stream(rng, LJ_VERTICES, n, ids)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    w[rng.random(n) < 0.25] = 0.0
+    tot = dict(ops=0, s=0.0, wal_ms=0.0, records=0, bytes=0, syncs=0)
+
+    def run(lo, hi):
+        """Apply ops [lo, hi) through the durable store, timed; WAL
+        records, bytes and group-commit syncs added up over segments."""
+        wal = dur.wal
+        r0, b0, y0 = wal.records_written, wal.bytes_written, wal.syncs
+        torch.cuda.synchronize()
+        t0, wal0 = time.perf_counter(), dur.wal_stats["wal_ms"]
+        for a in range(lo, hi, B):
+            b = min(a + B, hi)
+            res = dur.apply(OpBatch.edges(ids[si[a:b]], ids[di[a:b]],
+                                          w[a:b]))
+            if res.dropped:
+                raise AssertionError(f"durability: {res.dropped} ops "
+                                     "dropped")
+        torch.cuda.synchronize()
+        tot["s"] += time.perf_counter() - t0
+        tot["wal_ms"] += dur.wal_stats["wal_ms"] - wal0
+        tot["ops"] += hi - lo
+        tot["records"] += wal.records_written - r0
+        tot["bytes"] += wal.bytes_written - b0
+        tot["syncs"] += wal.syncs - y0
+        return hi
+
+    checkpoint(0)
+    pos = run(0, DURABLE_OPS)
+    man = checkpoint(pos)
+    if man["kind"] != "delta":
+        say("durability_full_again", why_full=man["why_full"])
+        pos = run(pos, pos + extra)
+        man = checkpoint(pos)
+    if not any(c["kind"] == "delta" for c in ckpts):
+        raise AssertionError(f"durability: no delta checkpoint: {ckpts}")
+    wal_only = dur.wal.records_written
+    pos = run(pos, pos + WAL_ONLY_OPS)     # stays in the WAL only
+    wal_only = dur.wal.records_written - wal_only
+    dur.sync()
+    dur.close()
+    say("durability", card=card_line(), **disk, group_commit=GROUP_COMMIT,
+        durable_ops=tot["ops"],
+        durable_updates_per_s=tot["ops"] / tot["s"], apply_s=tot["s"],
+        wal_ms=tot["wal_ms"],
+        wal_share_of_apply=tot["wal_ms"] / (tot["s"] * 1e3),
+        wal_records=tot["records"], wal_bytes=tot["bytes"],
+        wal_syncs_group_commit=tot["syncs"], checkpoints=ckpts,
+        delta_over_full_bytes=[c["bytes"] / ckpts[0]["bytes"]
+                               for c in ckpts if c["kind"] == "delta"])
+
+    # ---- recovery into a fresh store on the card ----
+    parts = {}
+    kops.reset_launch_counts()
+    s0 = dict(ep.SYNCS)
+    t0 = time.perf_counter()
+    rec, report = recover(ddir, lambda: make_store("local", **LJ_STORE),
+                          timings=parts, group_commit=GROUP_COMMIT)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
+    if syncs["defrag_dense"]:
+        raise AssertionError("durability: a replayed rebuild went dense")
+    for k in ("append", "compact_rows", "sort_lookup") + (
+            ("defrag_rows",) if syncs["defrag_stream"] else ()):
+        if launches[k] <= 0:
+            raise AssertionError(f"durability: the replay did not launch "
+                                 f"{k}")
+    if report["replayed"] != wal_only or report["gap_at"] is not None \
+            or str(report["wal_tail"]) != "ok" \
+            or report["checkpoint_kind"] != ckpts[-1]["kind"]:
+        raise AssertionError(f"durability: recovery report {report}")
+    dead = assert_states_equal(g.state, rec.graph.state, "recovered")
+    q = ids[sample]
+    for kind in ("lookup", "degree"):
+        if not np.array_equal(store.read(ReadOp(kind, ids=q)),
+                              rec.read(ReadOp(kind, ids=q))):
+            raise AssertionError(f"durability: recovered {kind} differs")
+    for (ia, wa), (ib, wb) in zip(store.read(ReadOp("neighbors", ids=q)),
+                                  rec.read(ReadOp("neighbors", ids=q))):
+        if not (np.array_equal(ia, ib) and np.array_equal(wa, wb)):
+            raise AssertionError("durability: recovered neighbors differ")
+    m_live = store.read(ReadOp("num_edges"))
+    m_rec = rec.read(ReadOp("num_edges"))
+    if m_live != m_rec:
+        raise AssertionError(f"durability: num_edges {m_rec} != {m_live}")
+    say("recovery", card=card_line(), seconds=rec_s,
+        report={k: str(v) if k == "wal_tail" else v
+                for k, v in report.items()},
+        read_ms=parts.get("read", 0.0), crc_ms=parts.get("crc", 0.0),
+        h2d_ms=parts.get("h2d", 0.0), replay_ms=parts["replay"],
+        replayed_ops=parts["replayed_ops"],
+        replayed_ops_per_s=parts["replayed_ops"] / parts["replay"] * 1e3,
+        replay_launches=launches,
+        replay_rebuilds_stream=syncs["defrag_stream"],
+        replay_rebuilds_dense=syncs["defrag_dense"],
+        state_leaves=len(flatten_named(g.state)),
+        unowned_blocks_differing=dead, reads_checked=len(q),
+        num_edges=m_rec,
+        equal="every leaf; the pool's entries on owned blocks")
+    rec.close()
+    del rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def crash_smoke(args, cdir, torch):
+    """``python -m repro_torch.storage.crash_smoke`` on the card at the
+    main path's state size (``CRASH_ARGS``): the child must die by
+    SIGKILL, and the recovered prefix and resumed stream match a control
+    store."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] +
+        ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", "repro_torch.storage.crash_smoke",
+           "--device", LJ_STORE["device"], "--seed", str(args.seed),
+           "--dir", str(cdir),
+           "--json", *CRASH_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"crash smoke failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    crash = json.loads(proc.stdout[proc.stdout.index("{"):])
+    say("crash_smoke", card=card_line(), seconds=time.perf_counter() - t0,
+        **crash)
+
+
 def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None):
     """float64 power iteration with the port's dangling rule: dangling
     mass spreads uniformly over the active (present) vertices."""
@@ -1772,12 +1993,15 @@ def main(argv=None):
     kernels = phase_kernels(store, ids, sample, launches, tally, final_tally,
                             chase_lib, torch, parent)
     phase_profile(store, ids, torch)
+    replay = phase_durability(args, store, ids, sample, torch)
     del store
     torch.cuda.empty_cache()
     level, alaunches = phase_analytics(args, torch)
     torch.cuda.empty_cache()
     kernels.append(phase_frontier_kernel(level, alaunches, torch, parent))
     del level
+    for line in kernels:    # launches of the durability phase's replay
+        line["replay_launches"] = replay[line["name"]]
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)

@@ -8,8 +8,9 @@ and analytics call accepts ``at=handle`` to answer against that version.
 Analytics run on the store's device; ``analytics_advance`` moves a cached
 result across epochs over the epoch delta on the host.
 
-Durability is a later slice of the port: those methods raise
-``UnsupportedOpError`` naming the slice.
+Durability hooks (``durable_state``, ``load_durable_state``, ``checkpoint``,
+``restore``) serve ``repro_torch.storage``, whose checkpoints share their
+on-disk format with the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,14 +20,14 @@ from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from ..convert import state_from_numpy
 from ..core import epoch_delta as ed
 from ..core import radixgraph as rg
 from ..core import vertex_table as vt_mod
 from ..core.keys import unpack_keys
 from ..core.radixgraph import RadixGraph
 from ..core.status import Reason
-from .ir import (AnalyticsOp, AnalyticsResult, ApplyResult, OpBatch, ReadOp,
-                 UnsupportedOpError)
+from .ir import AnalyticsOp, AnalyticsResult, ApplyResult, OpBatch, ReadOp
 from .registry import AnalyticsSpec, analytics_spec
 
 __all__ = ["GraphStore", "Epoch", "LocalStore", "make_store",
@@ -66,11 +67,6 @@ def _stale_gen(prev_handle: Optional[Epoch], at: Optional[Epoch],
                for ep in (prev_handle, at))
 
 
-def _later_slice(what: str, slice_name: str):
-    raise UnsupportedOpError(what, "local",
-                             f"arrives with the port's {slice_name} slice")
-
-
 class LocalStore:
     """Single-shard backend: the eager ``RadixGraph`` behind the IR.
 
@@ -91,8 +87,8 @@ class LocalStore:
         self.m_cap = m_cap or self.graph.pool_spec.capacity_entries
         self.max_delta_frac = max_delta_frac
         self._seq = 0
-        # bumped by every restore() (the durability slice): epoch handles
-        # captured before it are no longer delta-safe
+        # bumped by every restore(): epoch handles captured before it are
+        # no longer delta-safe
         self._restore_gen = 0
         self.stats = dict(ops_applied=0, ops_dropped=0, defrags=0,
                           defrag_ms=0.0, defrag_host_ms=0.0,
@@ -332,18 +328,49 @@ class LocalStore:
     def retained_epochs(self) -> int:
         return sum(1 for lab, _, _ in self.graph._versions if lab < 0)
 
-    # ---- later slices of the port ----
+    # ---- durability hooks (repro_torch.storage) ----
     def durable_state(self):
-        _later_slice("durable_state", "durability")
+        """The live state plus the HOST counters a restored process needs
+        for deterministic resume (capture seq, drop accounting, the defrag
+        watermark the spike attribution uses). The state is the live one:
+        it stays valid until the next apply."""
+        return self.graph.state, dict(
+            seq=self._seq, dropped_ops=self.graph.dropped_ops,
+            seen_defrags=self.graph._seen_defrags,
+            ops_applied=self.stats["ops_applied"],
+            ops_dropped=self.stats["ops_dropped"])
 
     def load_durable_state(self, state, meta: dict):
-        _later_slice("load_durable_state", "durability")
+        """Install a state (a ``GraphState`` of tensors, or of numpy
+        arrays in the JAX package's dtypes, as a checkpoint holds) as the
+        live image, on the store's device. The store pins it, so the next
+        apply copies it instead of updating it in place. Epoch handles
+        captured BEFORE this call are lineage-divergent: ``capture`` tags
+        handles with a restore generation and ``analytics_advance``
+        refuses cross-generation windows (``Reason.RESTORE_BOUNDARY``)."""
+        g = self.graph
+        g.state = state_from_numpy(state, g.device)
+        g._invalidate()
+        g.pin_live_state()
+        g.dropped_ops = int(meta.get("dropped_ops", 0))
+        g._seen_defrags = int(meta.get("seen_defrags",
+                                       int(g.state.pool.defrags)))
+        self._seq = int(meta.get("seq", 0))
+        self.stats["ops_applied"] = int(meta.get("ops_applied", 0))
+        self.stats["ops_dropped"] = int(meta.get("ops_dropped", 0))
+        self._restore_gen += 1
 
     def checkpoint(self, directory, **kw):
-        _later_slice("checkpoint", "durability")
+        """Write an epoch-consistent checkpoint of the live state (full or
+        incremental — see ``repro_torch.storage.checkpoint``)."""
+        from ..storage.checkpoint import save_graph_checkpoint
+        return save_graph_checkpoint(directory, self, **kw)
 
     def restore(self, directory, ckpt_id: Optional[int] = None):
-        _later_slice("restore", "durability")
+        """Restore the live state from the latest (or given) valid
+        checkpoint chain under ``directory``."""
+        from ..storage.checkpoint import restore_graph_checkpoint
+        return restore_graph_checkpoint(directory, self, ckpt_id)
 
 
 # ---- backend registry ----

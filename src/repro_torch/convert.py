@@ -4,8 +4,9 @@
 numpy arrays — the JAX package's state after ``jax.tree.map(np.asarray,
 state)`` has this form — and builds the port's ``GraphState`` on
 ``device``. uint32 leaves (vertex IDs) become int64; every other leaf
-keeps its dtype. ``state_to_numpy`` maps back, with the JAX package's
-dtypes. Fields are matched by name, so the port never sees a JAX object.
+keeps its dtype; a leaf that is already a tensor is moved to
+``device``. ``state_to_numpy`` maps back, with the JAX package's dtypes
+(the on-disk dtypes of a checkpoint). Fields are matched by name, so the port never sees a JAX object.
 ``snapshot_from_numpy`` / ``snapshot_to_numpy`` do the same for a CSR
 ``GraphSnapshot``.
 """
@@ -27,10 +28,15 @@ _UINT32_FIELDS = ("ids",)
 
 
 def _to_torch(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    elif device.type == "cpu" or not a.flags.writeable:
+        a = np.array(a, copy=True)      # the tensor must not alias ``a``
+    # a host array bound for the card is copied there by ``.to`` alone
+    return torch.from_numpy(a).to(device)
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:

@@ -364,3 +364,76 @@ def test_bfs_and_khop_kernel_vs_plain_on_card(cuda_device):
     assert ops.launch_counts()["frontier_expand"] > before
     assert torch.equal(a, bfs(snap, src, impl="ref"))
     assert torch.equal(ka, khop(snap, srcs, k=2, impl="ref"))
+
+
+# ---- durability on the card ----
+
+DUR_KW = dict(n_max=512, expected_n=64, pool_blocks=1024, block_size=8,
+              batch=128, dmax=256, k_max=64, m_cap=2048)
+
+
+def _dur_batches(seed, n_batches=8, size=96):
+    from repro_torch.api import OpBatch
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(2 ** 32, 48, replace=False).astype(np.uint64)
+    out = []
+    for _ in range(n_batches):
+        w = rng.uniform(0.5, 2.0, size).astype(np.float32)
+        w[rng.random(size) < 0.1] = 0.0
+        out.append(OpBatch.edges(rng.choice(ids, size), rng.choice(ids, size),
+                                 w))
+    return out
+
+
+def _leaves_equal(a, b):
+    from repro_torch.storage.checkpoint import flatten_named
+    for (name, x), (_, y) in zip(flatten_named(a), flatten_named(b)):
+        assert torch.equal(x.cpu(), y.cpu()), name
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A full checkpoint of a card-resident store restores on the card
+    equal in every leaf; a delta on top equal on every owned block."""
+    from repro_torch.api import make_store
+    from repro_torch.storage.crash_smoke import assert_states_equal
+    s = make_store("local", device=cuda_device, **DUR_KW)
+    batches = _dur_batches(0)
+    for b in batches[:4]:
+        s.apply(b)
+    assert s.checkpoint(tmp_path)["kind"] == "full"
+    f = make_store("local", device=cuda_device, **DUR_KW)
+    f.restore(tmp_path)
+    assert f.graph.state.pool.dst.device == s.graph.state.pool.dst.device
+    _leaves_equal(s.graph.state, f.graph.state)
+    for b in batches[4:]:
+        s.apply(b)
+    assert s.checkpoint(tmp_path, max_delta_frac=0.9)["kind"] == "delta"
+    f = make_store("local", device=cuda_device, **DUR_KW)
+    f.restore(tmp_path)
+    assert_states_equal(s.graph.state, f.graph.state, "delta on the card")
+
+
+@pytest.mark.cuda
+def test_recover_on_card_from_cpu_directory(cuda_device, tmp_path):
+    """A durable directory written on the CPU recovers on the card into
+    the state the CPU recovers, leaf for leaf, through the kernels."""
+    import shutil
+    from repro_torch.api import make_store
+    from repro_torch.kernels import ops
+    from repro_torch.storage import DurableStore, recover
+    store = DurableStore(make_store("local", device="cpu", **DUR_KW),
+                         tmp_path / "w", group_commit=1, checkpoint_every=3,
+                         max_delta_frac=0.9)
+    for b in _dur_batches(1):
+        store.apply(b)
+    store.close()
+    shutil.copytree(tmp_path / "w", tmp_path / "c")
+    cpu, rc = recover(tmp_path / "c",
+                      lambda: make_store("local", device="cpu", **DUR_KW))
+    before = ops.launch_counts()["append"]
+    card, rg = recover(tmp_path / "w", lambda: make_store(
+        "local", device=cuda_device, **DUR_KW))
+    assert rg == rc and rg["replayed"] == 2
+    assert ops.launch_counts()["append"] > before
+    _leaves_equal(cpu.graph.state, card.graph.state)

@@ -21,8 +21,7 @@ from repro.api import OpBatch as JOp
 from repro.api import ReadOp as JRead
 from repro.api import make_store as jmake
 from repro.core.radixgraph import RadixGraph as JG
-from repro_torch.api import (AnalyticsOp, OpBatch, ReadOp,
-                             UnsupportedOpError, available_backends,
+from repro_torch.api import (AnalyticsOp, OpBatch, ReadOp, available_backends,
                              make_store)
 from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import edgepool as TE
@@ -187,6 +186,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.analytics, repro_torch.api.registry\n"
         "import repro_torch.core.epoch_delta, repro_torch.serve\n"
         "import repro_torch.analytics.incremental\n"
+        "import repro_torch.storage, repro_torch.storage.crash_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -216,19 +216,41 @@ def test_default_device_needs_a_card():
             build()
 
 
-def test_later_slices_raise_and_registry():
-    """Durability still raises naming its slice; analytics now answers."""
-    s = make_store("local", device="cpu", n_max=256, expected_n=64,
-                   pool_blocks=256, batch=64)
+def test_later_slices_raise_and_registry(tmp_path):
+    """The durability hooks round-trip the state (in memory and through a
+    checkpoint directory); analytics answers."""
+    kw = dict(device="cpu", n_max=256, expected_n=64, pool_blocks=256,
+              batch=64)
+    s = make_store("local", **kw)
     assert available_backends() == ["local"]
     assert s.supported_ops == frozenset(("edges", "add_vertices",
                                          "delete_vertices"))
-    for call in (lambda: s.durable_state(), lambda: s.load_durable_state(
-            None, {}), lambda: s.checkpoint("x"), lambda: s.restore("x")):
-        with pytest.raises(UnsupportedOpError, match="durability slice"):
-            call()
     s.apply(OpBatch.edges(np.array([1, 2], np.uint64),
                           np.array([2, 3], np.uint64)))
+    state, meta = s.durable_state()
+    assert meta == dict(seq=1, dropped_ops=0, seen_defrags=0,
+                        ops_applied=2, ops_dropped=0)
+    host = state_to_numpy(state)
+    assert host.vt.ids.dtype == np.uint32
+    for load in (lambda t: t.load_durable_state(host, meta),
+                 lambda t: t.load_durable_state(state, meta),
+                 lambda t: t.restore(tmp_path)):
+        if not any(tmp_path.iterdir()):
+            assert s.checkpoint(tmp_path)["kind"] == "full"
+        t = make_store("local", **kw)
+        e = t.capture()
+        load(t)
+        for a, b in zip(jax.tree.leaves(host),
+                        jax.tree.leaves(state_to_numpy(t.graph.state))):
+            np.testing.assert_array_equal(a, b)
+        assert t.stats["ops_applied"] == 2 and t._seq == 1
+        assert t.capture().cache["gen"] == 1 != e.cache["gen"]
+        assert t.read(ReadOp("neighbors", ids=np.array([2], np.uint64)))[
+            0][0].tolist() == [3]
+        # the installed state is pinned: an apply copies it first
+        t.apply(OpBatch.edges(np.array([3], np.uint64),
+                              np.array([1], np.uint64)))
+        assert t.graph.state_copies == 1
     assert s.analytics(AnalyticsOp("num_edges")) == 2
     assert s.analytics(AnalyticsOp("bfs", dict(source=1))) == {1: 0, 2: 1,
                                                                3: 2}
