@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of RadixGraph on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
-                          [--analytics-edges 2097152] [--parent DIR]
+                          [--analytics-edges 2097152]
+                          [--sharded-ops 5242880] [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -59,7 +60,25 @@ Phases (any failure raises and the script exits non-zero):
    (2^18 ops in batches of 4096, group commit 8, a checkpoint every 21
    batches): the child dies by SIGKILL, prefix and resumed stream match
    a control store;
-6. analytics path, on a second store with the same LiveJournal-sized
+6. sharded path, after the main store is freed: ``make_store("sharded",
+   device="cuda")`` with 4 shards on the one card (2^23 vertex rows and
+   2^21 pool blocks of 16 a shard: the pools total the main path's), the
+   main path's stream (``--sharded-ops`` of it) in ``apply`` calls of
+   4096 ops, launch counters zeroed just before and read just after
+   (``append``, ``compact_rows`` and ``sort_lookup`` must run; every
+   rebuild must stream); updates/s, per-batch p50 / p99 ms, rebuilds per
+   shard, route fallbacks, sync runs and skips, host syncs and launches
+   per batch, the state's bytes by part, peak memory, each shard's row
+   high-water mark; lookup / degree / neighbors of 4096 sampled source
+   IDs (the host view's and the snapshots' builds timed apart),
+   ``num_edges`` and ``num_vertices``, held to the host oracle over the
+   ops applied; each kernel against its plain version (bit-exact) at
+   every shape the phase called it with (rows x width for the
+   compactions, ops for ``append``, keys for ``sort_lookup``), on inputs
+   from a shard of the final state, each shape timed alone; then 2
+   more batches under ``torch.profiler`` (sync share, device busy share,
+   host ops per batch);
+7. analytics path, on a second store with the same LiveJournal-sized
    state, undirected, after the first is freed: 2^21 powerlaw edges
    (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
    phase writes), then each of the nine registered analytics
@@ -73,12 +92,19 @@ Phases (any failure raises and the script exits non-zero):
    runs made only to time or check; the frontier kernel must have run.
    Then the frontier kernel against its plain version on the largest BFS
    level's inputs (bit-exact);
-7. whole-path parity at small size: the same stream with every kernel, and
+8. whole-path parity at small size: the same stream with every kernel, and
    with every impl forced to its plain version, gives identical state,
-   and bfs / khop give identical depths and counts.
+   and bfs / khop give identical depths and counts; the same for the
+   sharded engine (4 shards, route budget 64 so that the compacted route
+   and its dense fallback both run, a budgeted vertex sync after each
+   batch, the degree and snapshot reads): every stacked leaf and answer
+   identical, and the plain run launches nothing.
 
-The ``kernels`` line gives each kernel's main-path ``launches`` and the
-durability replay's ``replay_launches``. The last two lines are the
+The ``kernels`` line gives each kernel's main-path ``launches``, the
+durability replay's ``replay_launches``, the sharded phase's
+``sharded_launches`` and the largest error of its sharded shapes
+(``sharded_max_abs_err``, null where the phase did not call it). The
+last two lines are the
 ``kernels`` JSON object and the ``ok`` object.
 Nothing here imports JAX or the ``repro`` package.
 """
@@ -223,27 +249,35 @@ def device_ms(fn, launched, reps=20):
     share of their events the trace kept (CUPTI may drop some, and
     ``graph_ms`` checks the mean). ``device_ms`` is the mean kept event
     times the kernels per call, and each kernel's share of it
-    (``device_ms_by_kernel``) its kept time over the kept share."""
+    (``device_ms_by_kernel``) its kept time over the kept share. A trace
+    that kept none of them is taken again, up to five in all
+    (``profiler_traces``): in two runs on the H100 with the sharded phase
+    before the analytics, the frontier kernel's one trace kept no event.
+    """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    n0 = launched()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = (launched() - n0) / reps
-    ours, theirs = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and \
-                not e.name.startswith(("Memcpy", "Memset")):
-            by = theirs if "at::" in e.name else ours
-            by.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for traces in range(1, 6):      # a trace that kept no event is retaken
+        n0 = launched()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = (launched() - n0) / reps
+        ours, theirs = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and \
+                    not e.name.startswith(("Memcpy", "Memset")):
+                by = theirs if "at::" in e.name else ours
+                by.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if ours:
+            break
     if not ours or per <= 0:
-        raise AssertionError("the profiler saw no kernel on the card")
+        raise AssertionError("the profiler saw no kernel on the card "
+                             f"in {traces} traces")
     kept = sum(map(len, ours.values())) / (reps * per)
     fills = sum(sum(v) / len(v) * max(1, round(len(v) / reps))
                 for v in theirs.values()) / 1e3
@@ -251,7 +285,8 @@ def device_ms(fn, launched, reps=20):
                 kernels_per_call=per,
                 device_ms_by_kernel={k.split("(")[0]: sum(v) / (reps * kept)
                                      / 1e3 for k, v in ours.items()},
-                profiler_events_kept=kept, torch_kernels_ms=fills)
+                profiler_events_kept=kept, profiler_traces=traces,
+                torch_kernels_ms=fills)
 
 
 def graph_ms(fn, calls=20, replays=10):
@@ -429,6 +464,7 @@ def kernel_entry(torch, name, shape, kerns, plain, check, nbytes, nops):
                 kernels_per_call=t["kernels_per_call"],
                 device_ms_by_kernel=t["device_ms_by_kernel"],
                 profiler_events_kept=t["profiler_events_kept"],
+                profiler_traces=t["profiler_traces"],
                 host_us=host_us, plain_ms=pms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
                 nops / F32_OPS_PER_S else "operations",
@@ -571,28 +607,27 @@ def phase_build():
     return chase_lib
 
 
-def tally_shapes(mod, names, tally):
-    """Count the calls of ``mod``'s functions ``names`` by their first
-    argument's shape into ``tally`` (keys (name, *shape)); returns the
-    function that puts the originals back."""
+def tally_shapes(mod, names, tally, arg=0):
+    """Count the calls of ``mod``'s functions ``names`` by the shape of
+    their argument ``arg`` into ``tally`` (keys (name, *shape)); returns
+    the function that puts the originals back."""
     orig = {n: getattr(mod, n) for n in names}
 
     def counted(n, f):
-        def g(x, *a, **k):
-            key = (n, *x.shape)
+        def g(*a, **k):
+            key = (n, *a[arg].shape)
             tally[key] = tally.get(key, 0) + 1
-            return f(x, *a, **k)
+            return f(*a, **k)
         return g
     for n, f in orig.items():
         setattr(mod, n, counted(n, f))
     return lambda: [setattr(mod, n, f) for n, f in orig.items()]
 
 
-def phase_main(args, torch):
-    from repro_torch.api import OpBatch, ReadOp, make_store
-    from repro_torch.core import edgepool as ep
-    from repro_torch.kernels import compact as kc, ops as kops
-
+def lj_stream(args):
+    """The main path's stream from ``--seed``: 2^22 powerlaw inserts, then
+    2^20 mixed ops with 25% tombstones. Returns the generator (its state
+    after the stream) with the IDs, endpoint indices and weights."""
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     ids, si, di = powerlaw_stream(rng, LJ_VERTICES, args.ingest_ops)
@@ -603,6 +638,15 @@ def phase_main(args, torch):
     say("stream", seconds=round(time.perf_counter() - t0, 3),
         ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops,
         vertices=LJ_VERTICES, seed=args.seed)
+    return rng, ids, si, di, w_in, msi, mdi, w_mx
+
+
+def phase_main(args, torch, stream):
+    from repro_torch.api import OpBatch, ReadOp, make_store
+    from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import compact as kc, ops as kops
+
+    rng, ids, si, di, w_in, msi, mdi, w_mx = stream
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -818,43 +862,36 @@ def phase_rebuild_check(store, torch):
     return tally
 
 
-def phase_kernels(store, ids, sample, launches, tally, final_tally,
-                  chase_lib, torch, parent):
-    """Each kernel against its plain version at main-path shapes, on
-    inputs taken from the main path's final state: ``defrag_rows`` at
-    every (rows, width) shape the path called (``tally``) and at the wide
-    tier of the final state's streaming rebuild (``final_tally``).
-    ``parent`` is None or the lookup of ``load_parent``: each wrapper the
-    parent has is timed beside this checkout's."""
-    from repro_torch.core import edgepool as ep
-    from repro_torch.core.keys import pack_keys
-    from repro_torch.kernels import append as ka, compact as kc, \
-        sort_lookup as ks
+def rows_by_size(sz, lo, hi, k, gen):
+    """``k`` random rows whose size ``sz`` is in (lo, hi], -1 past the
+    rows there are."""
+    import torch
+    cand = torch.nonzero((sz > lo) & (sz <= hi)).flatten()
+    cand = cand[torch.randperm(cand.numel(), device=sz.device,
+                               generator=gen)[:k]]
+    u = torch.full((k,), -1, dtype=torch.int32, device=sz.device)
+    u[:cand.numel()] = cand.to(torch.int32)
+    return u
 
-    g = store.graph
-    st, spec = g.state, g.pool_spec
-    dev = g.device
-    rng = np.random.default_rng(1)
-    rows, shapes = {}, []
 
-    def record(name, shape, kerns, plain, check, nbytes, nops):
-        entry = kernel_entry(torch, name, shape, kerns, plain, check, nbytes,
-                             nops)
-        shapes.append(entry)
-        rows.setdefault(name, entry)
-        return entry
+def live_sizes(vt):
+    """Each row's extent size, 0 for rows deleted or without an extent."""
+    import torch
+    return torch.where((vt.del_time == 0) & (vt.start_block >= 0), vt.size, 0)
 
-    # ---- sort_lookup: 2 x batch keys (the ingest shape) ----
-    keys = pack_keys(ids[rng.choice(len(ids), 2 * g.batch)], 32, dev)
-    keys[::7, 1] ^= 1                      # some absent IDs
-    sspec = g.sort_spec
+
+def sort_lookup_case(record, sort, sspec, keys, old=None):
+    """``sort_lookup`` of ``keys`` on the SORT pools ``sort``; returns its
+    keyword arguments."""
+    import torch
+    from repro_torch.core.keys import extract_bits
+    from repro_torch.kernels import sort_lookup as ks
     kw = dict(fanout_bits=sspec.fanout_bits, bit_offsets=sspec.bit_offsets)
-    pools = st.sort.pools
+    pools, dev = sort.pools, keys.device
     # loads this data needs: one per layer the descent reaches
     node = torch.zeros(keys.shape[0], dtype=torch.int32, device=dev)
     alive = torch.ones(keys.shape[0], dtype=torch.bool, device=dev)
     loads = 0
-    from repro_torch.core.keys import extract_bits
     for pool, a, boff in zip(pools, *kw.values()):
         loads += int(alive.sum())
         slot = node * (1 << a) + extract_bits(keys, boff, a)
@@ -862,18 +899,22 @@ def phase_kernels(store, ids, sample, launches, tally, final_tally,
         alive = alive & (child >= 0)
         node = child.clamp_min(0)
     record("sort_lookup", [keys.shape[0], 2],
-           wrappers(parent, "sort_lookup", "sort_lookup", pools, keys, **kw),
+           wrappers(old, "sort_lookup", "sort_lookup", pools, keys, **kw),
            lambda: ks.sort_lookup_plain(pools, keys, **kw),
            lambda: ([ks.sort_lookup(pools, keys, **kw)],
                     [ks.sort_lookup_plain(pools, keys, **kw)]),
            keys.numel() * 8 + loads * 4 + keys.shape[0] * 4,
            loads * 4)
+    return kw
 
-    # ---- append: one op per distinct vertex at its next free slot, a
-    # probe of each vertex's whole extent for one of its own dsts ----
-    vt = st.vt
-    off = torch.from_numpy(g.lookup(ids[sample])).to(dev).long()
-    off = off[off >= 0][:g.batch]
+
+def append_case(record, st, spec, off, old=None):
+    """``append`` of one op per vertex row of ``off`` at its next free
+    slot, with a probe of each row's whole extent for one of its own dsts,
+    into copies of ``st``'s pool."""
+    import torch
+    from repro_torch.kernels import append as ka
+    vt, dev = st.vt, off.device
     P = off.shape[0]
     pstart = vt.start_block[off].contiguous()
     psize = vt.size[off].contiguous()
@@ -902,74 +943,117 @@ def phase_kernels(store, ids, sample, launches, tally, final_tally,
     # was_live byte per probe; wval per op, (wblk, wlane) per valid op, and
     # (wd, ww, wts) read and written per landed op
     record("append", [spec.n_blocks, spec.block_size, P],
-           wrappers(parent, "append", "append_edges", *pk, *ops),
+           wrappers(old, "append", "append_edges", *pk, *ops),
            lambda: ka.append_edges_plain(*pp, *ops),
            lambda: ([was_k, *pk], [was_p, *pp]),
            4 * (probed + matches + winners) + 13 * P + P +
            8 * int(wval.sum()) + 24 * landed, probed)
-    del pk, pp
+
+
+def compact_case(record, st, spec, u, width, name="compact_rows",
+                 defrag=False, old=None, cut=False):
+    """``compact_rows`` (or ``defrag_rows``) of ``st``'s rows ``u``
+    gathered at ``width``; ``cut``: extents wider than the rows give their
+    first ``width`` entries."""
+    from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import compact as kc
+    d, w, t, s = ep._gather_vertex_entries(spec, st.pool, st.vt, u, width)
+    if cut:
+        s = s.clamp_max(width)
+    d, w, t, s = (x.contiguous() for x in (d, w, t, s))
+    occupied, last, kept, most = row_work(d, s, w)
+    # the bytes this function needs: dst of every occupied entry, the
+    # weight of each dst's last writer, ts of each survivor; size;
+    # the (dst, w, ts) output rows in full, count (and live)
+    K = d.shape[0]
+    nbytes = 4 * occupied + w.element_size() * last + 4 * kept + \
+        4 * K + d.numel() * (8 + w.element_size()) + 4 * K * (1 + defrag)
+    # a table insert per occupied entry; the sort path compares
+    nops = occupied * (max(1, int(np.log2(max(width, 2)))) if defrag
+                       else 1)
+    if defrag:
+        f, fp = "defrag_rows", kc.defrag_rows_plain
+    else:
+        f, fp = "compact_rows", kc.compact_rows_plain
+    mine = getattr(kc, f)
+    record(name, [K, width], wrappers(old, "compact", f, d, w, t, s),
+           lambda: fp(d, w, t, s),
+           lambda: (list(mine(d, w, t, s)), list(fp(d, w, t, s))),
+           nbytes, nops).update(occupied=occupied, last_writers=last,
+                                survivors=kept, max_dst_repeats=most)
+
+
+def defrag_case(record, st, spec, n_cap, K, W, gen, old=None):
+    """``defrag_rows`` at a rebuild's chunk shape (K, W): a size segment's
+    chunk takes random rows of ``st`` from the segment; a wide tier's
+    (wider than the top segment) takes ``st``'s widest extents, cut to its
+    width."""
+    import torch
+    from repro_torch.core import edgepool as ep
+    widths = [x for x, _ in ep._defrag_tiers(spec, n_cap)]
+    sz = live_sizes(st.vt)
+    if W <= widths[-1]:
+        u = rows_by_size(sz, max([x for x in widths if x < W], default=0), W,
+                         K, gen)
+    else:
+        u = torch.argsort(sz, descending=True)[:K].to(torch.int32)
+    # the parent's defrag_rows stops at 16384
+    compact_case(record, st, spec, u.contiguous(), W, "defrag_rows",
+                 defrag=True, old=old if W <= 16384 else None,
+                 cut=W > widths[-1])
+
+
+def phase_kernels(store, ids, sample, launches, tally, final_tally,
+                  chase_lib, torch, parent):
+    """Each kernel against its plain version at main-path shapes, on
+    inputs taken from the main path's final state: ``defrag_rows`` at
+    every (rows, width) shape the path called (``tally``) and at the wide
+    tier of the final state's streaming rebuild (``final_tally``).
+    ``parent`` is None or the lookup of ``load_parent``: each wrapper the
+    parent has is timed beside this checkout's."""
+    from repro_torch.core import edgepool as ep
+    from repro_torch.core.keys import pack_keys
+
+    g = store.graph
+    st, spec = g.state, g.pool_spec
+    dev = g.device
+    rng = np.random.default_rng(1)
+    rows, shapes = {}, []
+
+    def record(name, shape, kerns, plain, check, nbytes, nops):
+        entry = kernel_entry(torch, name, shape, kerns, plain, check, nbytes,
+                             nops)
+        shapes.append(entry)
+        rows.setdefault(name, entry)
+        return entry
+
+    # ---- sort_lookup: 2 x batch keys (the ingest shape) ----
+    keys = pack_keys(ids[rng.choice(len(ids), 2 * g.batch)], 32, dev)
+    keys[::7, 1] ^= 1                      # some absent IDs
+    kw = sort_lookup_case(record, st.sort, g.sort_spec, keys, parent)
+    pools = st.sort.pools
+
+    # ---- append: one op per distinct vertex of the sample ----
+    off = torch.from_numpy(g.lookup(ids[sample])).to(dev).long()
+    off = off[off >= 0][:g.batch]
+    append_case(record, st, spec, off, parent)
 
     # ---- compact_rows: the three main-path shapes, from real rows ----
-    live = (vt.del_time == 0) & (vt.start_block >= 0)
-    sz = torch.where(live, vt.size, 0)
-
+    sz = live_sizes(st.vt)
     pick_rows = torch.Generator(device=dev).manual_seed(3)
-
-    def rows_of(lo, hi, k):
-        cand = torch.nonzero((sz > lo) & (sz <= hi)).flatten()
-        cand = cand[torch.randperm(cand.numel(), device=dev,
-                                   generator=pick_rows)[:k]]
-        u = torch.full((k,), -1, dtype=torch.int32, device=dev)
-        u[:cand.numel()] = cand.to(torch.int32)
-        return u
-
-    def compact_case(u, width, name="compact_rows", defrag=False,
-                     old=parent, cut=False):
-        d, w, t, s = ep._gather_vertex_entries(spec, st.pool, vt, u, width)
-        if cut:     # extents wider than the rows: their first ``width``
-            s = s.clamp_max(width)
-        d, w, t, s = (x.contiguous() for x in (d, w, t, s))
-        occupied, last, kept, most = row_work(d, s, w)
-        # the bytes this function needs: dst of every occupied entry, the
-        # weight of each dst's last writer, ts of each survivor; size;
-        # the (dst, w, ts) output rows in full, count (and live)
-        K = d.shape[0]
-        nbytes = 4 * occupied + w.element_size() * last + 4 * kept + \
-            4 * K + d.numel() * (8 + w.element_size()) + 4 * K * (1 + defrag)
-        # a table insert per occupied entry; the sort path compares
-        nops = occupied * (max(1, int(np.log2(max(width, 2)))) if defrag
-                           else 1)
-        if defrag:
-            f, fp = "defrag_rows", kc.defrag_rows_plain
-        else:
-            f, fp = "compact_rows", kc.compact_rows_plain
-        mine = getattr(kc, f)
-        record(name, [K, width], wrappers(old, "compact", f, d, w, t, s),
-               lambda: fp(d, w, t, s),
-               lambda: (list(mine(d, w, t, s)), list(fp(d, w, t, s))),
-               nbytes, nops).update(occupied=occupied, last_writers=last,
-                                    survivors=kept, max_dst_repeats=most)
-
-    compact_case(off.to(torch.int32)[:g.batch].contiguous(), spec.dmax)
-    compact_case(rows_of(0, spec.probe_width, spec.k_max), spec.probe_width)
-    compact_case(rows_of(spec.probe_width, spec.dmax, spec.k_big), spec.dmax)
-    # defrag_rows at every shape the path called: a size segment's chunk
-    # takes random rows of this state from the segment; a wide tier of an
-    # earlier rebuild (wider than the top segment) takes this state's
-    # widest extents, cut to its width. Then the wide tier of this state.
+    for u, W in ((off.to(torch.int32)[:g.batch], spec.dmax),
+                 (rows_by_size(sz, 0, spec.probe_width, spec.k_max,
+                               pick_rows), spec.probe_width),
+                 (rows_by_size(sz, spec.probe_width, spec.dmax, spec.k_big,
+                               pick_rows), spec.dmax)):
+        compact_case(record, st, spec, u.contiguous(), W, old=parent)
+    # defrag_rows at every shape the path called, then the wide tier of
+    # this state's rebuild
     widths = [W for W, _ in ep._defrag_tiers(spec, g.n_max)]
-    widest = torch.argsort(sz, descending=True).to(torch.int32)
     final_wide = {k for k in final_tally if k[2] > widths[-1]}
     for n, K, W in sorted(set(tally) | final_wide, key=lambda k: k[::-1]):
-        if n != "defrag_rows":
-            continue
-        if W <= widths[-1]:
-            u = rows_of(max([x for x in widths if x < W], default=0), W, K)
-        else:
-            u = widest[:K].contiguous()
-        # the parent's defrag_rows stops at 16384
-        compact_case(u, W, "defrag_rows", defrag=True,
-                     old=parent if W <= 16384 else None, cut=W > widths[-1])
+        if n == "defrag_rows":
+            defrag_case(record, st, spec, g.n_max, K, W, pick_rows, parent)
     torch.cuda.synchronize()
     say("kernel_shapes", card=card_line(), shapes=shapes)
     floor = sort_lookup_floor(chase_lib, pools, keys, kw,
@@ -1411,6 +1495,358 @@ def crash_smoke(args, cdir, torch):
     crash = json.loads(proc.stdout[proc.stdout.index("{"):])
     say("crash_smoke", card=card_line(), seconds=time.perf_counter() - t0,
         **crash)
+
+
+# the sharded phase's store: 4 shards on the one card. The pools total the
+# main path's 2^23 blocks of 16; each vertex table is as large as the main
+# path's (at LiveJournal scale nearly every vertex gets a stub row in every
+# source shard); every other knob keeps the JAX package's default
+SHARDED_STORE = dict(device="cuda", n_shards=4, n_per_shard=2 ** 23,
+                     expected_n=LJ_VERTICES, key_bits=32,
+                     pool_blocks=2 ** 21, block_size=16, k_max=256,
+                     dmax=4096, batch=4096, query_batch=4096)
+
+
+def phase_sharded(args, torch, stream):
+    """The sharded backend at the main path's state size: the main path's
+    stream (``stream``, from ``lj_stream``; cut to ``--sharded-ops``)
+    through ``make_store("sharded")`` in ``apply`` calls of 4096 ops,
+    launch counters zeroed just before and
+    read just after; then lookup / degree / neighbors of 4096 sampled
+    source IDs (the host view's and the snapshots' builds timed apart),
+    ``num_edges`` and ``num_vertices``, all held to the host oracle over
+    the ops applied. Returns the launches by kernel."""
+    from repro_torch.api import OpBatch, ReadOp, make_store
+    from repro_torch.core import edgepool as ep
+    from repro_torch.dist import graph_engine as ge
+    from repro_torch.kernels import append as ka, compact as kc, \
+        ops as kops, sort_lookup as ks
+    rng, ids, si, di, w_in, msi, mdi, w_mx = stream
+    n_ops = min(args.sharded_ops, len(si) + len(msi))
+    si = np.concatenate([si, msi])[:n_ops]
+    di = np.concatenate([di, mdi])[:n_ops]
+    w = np.concatenate([w_in, w_mx])[:n_ops]
+    del msi, mdi, w_in, w_mx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = make_store("sharded", **SHARDED_STORE)
+    st = store.state
+    torch.cuda.synchronize()
+    say("sharded_store", seconds=round(time.perf_counter() - t0, 3),
+        n_shards=store.n_shards, fanout_bits=list(store.sspec.fanout_bits),
+        sort_pool_bytes=nbytes(st.sort), vertex_table_bytes=nbytes(st.vt),
+        edge_pool_bytes=nbytes(st.pool), state_bytes=nbytes(st),
+        sync_budget=store.sync_budget, pipeline_depth=store.pipeline_depth)
+
+    B = store.batch
+    # every kernel call of the phase by shape (ops for append, keys for
+    # sort_lookup, rows x width for the compactions)
+    tally = {}
+    untally = [tally_shapes(kc, ("compact_rows", "defrag_rows"), tally),
+               tally_shapes(ka, ("append_edges",), tally, arg=3),
+               tally_shapes(ks, ("sort_lookup",), tally, arg=1)]
+    kops.reset_launch_counts()
+    s0, r0 = dict(ep.SYNCS), dict(ge.ROUTES)
+    lat = []
+    t_start = time.perf_counter()
+    for lo in range(0, n_ops, B):
+        t = time.perf_counter()
+        res = store.apply(OpBatch.edges(ids[si[lo:lo + B]],
+                                        ids[di[lo:lo + B]], w[lo:lo + B]))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        if res.dropped:
+            raise AssertionError(f"sharded: {res.dropped} ops dropped")
+    t_apply = time.perf_counter() - t_start
+    launches = kops.launch_counts()
+    syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
+    routes = {k: ge.ROUTES[k] - r0[k] for k in r0}
+    st = store.state
+    n_batches = len(lat)
+
+    sample = np.sort(rng.choice(np.unique(si), 4096, replace=False))
+    q = ids[sample]
+    t0 = time.perf_counter()
+    view = store._host_view(st)
+    t_view = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snaps = store._snapshots(st)
+    torch.cuda.synchronize()
+    t_snap = time.perf_counter() - t0
+    read_ms = {}
+    for kind in ("lookup", "degree", "neighbors"):
+        t0 = time.perf_counter()
+        out = store.read(ReadOp(kind, ids=q))
+        torch.cuda.synchronize()
+        read_ms[kind] = (time.perf_counter() - t0) * 1e3
+        if kind == "lookup":
+            found = out
+        elif kind == "degree":
+            deg = out
+        else:
+            nbrs = out
+    t0 = time.perf_counter()
+    n_edges = store.read(ReadOp("num_edges"))
+    read_ms["num_edges"] = (time.perf_counter() - t0) * 1e3
+    n_vertices = store.read(ReadOp("num_vertices"))
+    for u in untally:
+        u()
+
+    # ---- the host oracle over the ops this phase applied ----
+    osrc, odst, ow = oracle(LJ_VERTICES, si, di, w)
+    if n_edges != len(osrc):
+        raise AssertionError(f"sharded num_edges {n_edges}, oracle "
+                             f"{len(osrc)}")
+    if not found.all():
+        raise AssertionError("sharded: a sampled source vertex is missing")
+    # the sync gives every vertex of the stream exactly one owner row
+    if n_vertices != len(np.unique(np.concatenate([si, di]))):
+        raise AssertionError(f"sharded num_vertices {n_vertices} is not "
+                             "the stream's vertex count")
+    odeg = np.bincount(osrc, minlength=LJ_VERTICES)
+    # degree reads scan at most dmax entries of an edge array, as on the
+    # main path: a vertex whose array is longer is checked by neighbors
+    # (the CSR) only
+    owner = ge.shard_of_keys(store._keys(q), store.n_shards).cpu().numpy()
+    row = np.array([view["row_of"][s][np.searchsorted(view["row_vid"][s],
+                                                      x)]
+                    for s, x in zip(owner, q)])
+    size = st.vt.size[torch.from_numpy(owner).long(),
+                      torch.from_numpy(row).long()].cpu().numpy()
+    within = size <= store.pspec.dmax
+    if within.mean() < 0.9:
+        raise AssertionError("too few sampled vertices within the read width")
+    if not np.array_equal(deg[within], odeg[sample][within]):
+        raise AssertionError("sharded degree disagrees with the oracle")
+    order = np.argsort(osrc, kind="stable")
+    starts = np.searchsorted(osrc[order], sample)
+    for j, v in enumerate(sample):
+        e = order[starts[j]:starts[j] + odeg[v]]
+        exp = dict(zip(ids[odst[e]].tolist(), ow[e].tolist()))
+        got = dict(zip(nbrs[j][0].tolist(), nbrs[j][1].tolist()))
+        if got != exp:
+            raise AssertionError(f"sharded neighbors of {int(q[j])} "
+                                 "disagree")
+    for k in ("append", "compact_rows", "sort_lookup"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 "sharded path")
+    rebuilds = st.pool.defrags.tolist()
+    if sum(rebuilds) and launches["defrag_rows"] <= 0:
+        raise AssertionError("a sharded rebuild launched no defrag_rows")
+    if syncs["defrag_dense"]:
+        raise AssertionError("a sharded rebuild took the dense path")
+    errs = sharded_kernel_checks(store, st, tally, launches, torch)
+    profile = sharded_profile(store, ids, torch)
+    say("sharded", card=card_line(), ops=n_ops, batches=n_batches,
+        seconds=round(time.perf_counter() - t_start, 3),
+        updates_per_s=n_ops / t_apply,
+        batch_p50_ms=float(np.percentile(lat, 50)),
+        batch_p99_ms=float(np.percentile(lat, 99)),
+        batch_max_ms=float(np.max(lat)),
+        rebuilds_per_shard=rebuilds, defrag_wide=syncs["defrag_wide"],
+        route_fallbacks=routes["dense_fallback"],
+        compact_routes=routes["compact"],
+        sync_runs=store.stats["sync_runs"],
+        sync_skips=store.stats["sync_skips"],
+        host_syncs_per_batch=syncs["host_syncs"] / n_batches,
+        launches=launches,
+        launches_per_batch={k: v / n_batches for k, v in launches.items()},
+        row_high_water=st.vt.num_rows.tolist(),
+        vertices=n_vertices, live_edges=n_edges,
+        host_view_build_ms=t_view * 1e3, snapshots_build_ms=t_snap * 1e3,
+        read_4096_ms=read_ms, reads_checked=dict(
+            lookup=len(q), degree=int(within.sum()), neighbors=len(q)),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        state_copies=store.state_copies, oracle="agrees", **profile)
+    del store, st, snaps, view
+    return launches, errs
+
+
+def sharded_kernel_checks(store, st, tally, launches, torch):
+    """Each kernel of the sharded phase against its plain version at every
+    shape the phase called it with (``tally``), on inputs from a shard
+    view of the final state (shape i on shard i mod n_shards), each timed
+    alone (CUDA events, 5 calls). Returns each kernel's largest error."""
+    from repro_torch.dist import graph_engine as ge
+    n, spec, dev = store.n_shards, store.pspec, store.device
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes, at = [], {}
+
+    def record(name, shape, kerns, plain, check, nbytes, nops):
+        out_k, out_p = check()
+        entry = dict(name=name, shape=shape, max_abs_err=max_abs_err(
+            out_k, out_p), ms=cuda_ms(kerns[0], reps=5, warm=1),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         nops / F32_OPS_PER_S) * 1e3, **at)
+        shapes.append(entry)
+        return entry
+
+    for i, key in enumerate(sorted(tally)):
+        name, *shape = key
+        at.update(shard=i % n, path_calls=tally[key])
+        v = ge.shard_view(st, i % n)
+        if name == "sort_lookup":        # live IDs of the shard, some absent
+            rows = torch.nonzero(v.vt.del_time == 0).flatten()
+            keys = v.vt.ids[rows[torch.randint(
+                rows.numel(), (shape[0],), device=dev, generator=gen)]]
+            keys[::7, 1] ^= 1
+            sort_lookup_case(record, v.sort, store.sspec, keys)
+        elif name == "append_edges":     # distinct rows with an extent
+            rows = torch.nonzero((v.vt.del_time == 0) &
+                                 (v.vt.start_block >= 0)).flatten()
+            append_case(record, v, spec, rows[torch.randperm(
+                rows.numel(), device=dev, generator=gen)[:shape[0]]])
+        elif name == "compact_rows":
+            K, W = shape
+            if W == spec.probe_width:    # the fast path's probe window
+                lo, hi = 0, W
+            elif K == spec.k_big:        # its big tier
+                lo, hi = spec.probe_width, W
+            else:                        # degree reads: any row
+                lo, hi = 0, torch.iinfo(torch.int32).max
+            compact_case(record, v, spec, rows_by_size(
+                live_sizes(v.vt), lo, hi, K, gen).contiguous(), W)
+        else:
+            defrag_case(record, v, spec, store.n_per_shard, *shape, gen)
+    torch.cuda.synchronize()
+    errs = {}
+    for e in shapes:
+        errs[e["name"]] = max(errs.get(e["name"], 0.0), e["max_abs_err"])
+    missing = [k for k in INGEST_KERNELS if launches[k] and k not in errs]
+    if missing:
+        raise AssertionError(f"sharded kernels launched but not checked: "
+                             f"{missing}")
+    empty = [(e["name"], e["shape"]) for e in shapes if e.get("occupied") == 0]
+    if empty:
+        raise AssertionError(f"sharded shapes checked on empty rows: {empty}")
+    say("sharded_kernel_shapes", card=card_line(), shapes=shapes,
+        ms_is="kernel wrapper calls between CUDA events, 5 calls",
+        seconds=round(time.perf_counter() - t0, 3))
+    return errs
+
+
+def sharded_profile(store, ids, torch, n_batches=2):
+    """Where a steady-state sharded batch's time goes: ``n_batches`` more
+    mixed batches (after the oracle checks) under ``torch.profiler``:
+    wall ms a batch, the share of it in the vertex sync, host ops a batch
+    and the device's busy share. Two batches: a trace of 8 (~60,000
+    kernel events) was followed by a frontier-kernel trace that kept no
+    event."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import OpBatch
+    rng = np.random.default_rng(4)
+    B = store.batch
+    _, si, di = powerlaw_stream(rng, LJ_VERTICES, n_batches * B, ids)
+    w = rng.uniform(0.5, 2.0, len(si)).astype(np.float32)
+    w[rng.random(len(si)) < 0.25] = 0.0
+    sync_s = []
+    inner = store._maybe_sync_live
+
+    def timed_sync(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(*a)
+        torch.cuda.synchronize()
+        sync_s.append(time.perf_counter() - t)
+    store._maybe_sync_live = timed_sync
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_batches):
+                sl = slice(i * B, (i + 1) * B)
+                store.apply(OpBatch.edges(ids[si[sl]], ids[di[sl]], w[sl]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del store._maybe_sync_live
+    ka = prof.key_averages()
+    return dict(
+        profile_batch_ms=wall * 1e3 / n_batches,
+        profile_sync_share=sum(sync_s) / wall,
+        profile_device_busy_share=device_busy_us(prof) / (wall * 1e6),
+        profile_host_ops_per_batch=sum(
+            e.count for e in ka if e.key.startswith("aten::")) / n_batches)
+
+
+def sharded_parity(torch, device="cuda"):
+    """A small stream through the sharded engine (4 shards, route budget
+    64: both routes run) twice, with every kernel and with every plain
+    version, plus a budgeted vertex sync and the degree and snapshot
+    reads: every stacked leaf and every answer identical, and the plain
+    run launches nothing. The engine functions are driven directly."""
+    import dataclasses
+    from repro_torch.core import edgepool as ep
+    from repro_torch.core.keys import pack_keys
+    from repro_torch.core.sort import SortSpec
+    from repro_torch.core.sort_optimizer import optimize_sort
+    from repro_torch.dist import graph_engine as ge
+    from repro_torch.kernels import ops as kops
+    n, B = 4, 1024
+    rng = np.random.default_rng(6)
+    ids, si, di = powerlaw_stream(rng, 3000, 40_960)
+    w = rng.uniform(0.5, 2.0, len(si)).astype(np.float32)
+    w[rng.random(len(si)) < 0.25] = 0.0
+    si[8192:12288] = np.arange(4096) % 40         # 40 medium hubs at once
+    mask = np.ones(len(si), bool)
+    mask[20480:30720] = (np.arange(10240) % B) < 96    # compacted batches
+    dev = torch.device(device)
+    sk, dk = pack_keys(ids[si], 32, dev), pack_keys(ids[di], 32, dev)
+    tw, tm = torch.from_numpy(w).to(dev), torch.from_numpy(mask).to(dev)
+    q = pack_keys(ids[:4096], 32, dev)
+    sspec = SortSpec.from_config(optimize_sort(3000, 32, 5), 8192)
+    pspec = ep.PoolSpec(n_blocks=4096, block_size=16, dmax=512, k_max=32,
+                        k_big=4, probe_width=64)
+    plain = (dataclasses.replace(sspec, lookup_impl="ref"),
+             dataclasses.replace(pspec, append_impl="plain",
+                                 compact_impl="ref"))
+    runs = []
+    for ss, ps in ((sspec, pspec), plain):
+        kops.reset_launch_counts()
+        r0 = dict(ge.ROUTES)
+        apply = ge.make_apply_edges(ss, ps, n, route_budget=64)
+        sync = ge.make_sync_vertices(ss, ps, n, budget=256,
+                                     incremental=True)
+        state = ge.make_sharded_state(ss, ps, n, 8192, dev)
+        drops = []
+        for lo in range(0, len(si), B):
+            rows = state.vt.num_rows.clone()
+            state, d = apply(state, sk[lo:lo + B], dk[lo:lo + B],
+                             tw[lo:lo + B], tm[lo:lo + B])
+            state = sync(state, rows)
+            drops.append(d)
+        deg = ge.make_khop_counts(ss, ps, n)(state, q)
+        snap = ge.make_snapshot(ss, ps, n, ps.capacity_entries)(state)
+        torch.cuda.synchronize()
+        runs.append(dict(state=state, drops=torch.stack(drops), deg=deg,
+                         snap=snap, launches=kops.launch_counts(),
+                         routes={k: ge.ROUTES[k] - r0[k] for k in r0}))
+    a, b = runs
+    la, lb = leaves(a["state"]), leaves(b["state"])
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        raise AssertionError("sharded kernel path and plain path states "
+                             "differ")
+    for k in ("drops", "deg"):
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"sharded kernel and plain {k} differ")
+    if not all(torch.equal(x, y) for x, y in zip(a["snap"], b["snap"])):
+        raise AssertionError("sharded kernel and plain snapshots differ")
+    if max(b["launches"].values()) != 0 or min(
+            a["launches"][k] for k in INGEST_KERNELS) <= 0:
+        raise AssertionError(f"sharded launch counts {a['launches']} "
+                             f"{b['launches']}")
+    if not (a["routes"]["compact"] and a["routes"]["dense_fallback"]):
+        raise AssertionError(f"both routes must run: {a['routes']}")
+    if int(a["drops"].sum()):
+        raise AssertionError("sharded parity stream dropped ops")
+    say("sharded_parity", identical=True, leaves=len(la), n_shards=n,
+        defrags=a["state"].pool.defrags.tolist(), routes=a["routes"],
+        kernel_launches=a["launches"], plain_launches=b["launches"],
+        live_edges=int(a["snap"].m.sum()))
 
 
 def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None):
@@ -1953,6 +2389,7 @@ def phase_parity(torch):
                                  "and its plain version differ")
     if min(counts[0].values()) <= 0 or max(counts[1].values()) != 0:
         raise AssertionError(f"launch counts {counts}")
+    sharded_parity(torch)
     say("parity", identical=True, leaves=len(la),
         bfs_reached=int((walks[0][0] >= 0).sum()),
         khop_counts=walks[0][1].tolist(),
@@ -1967,6 +2404,9 @@ def main(argv=None):
     ap.add_argument("--mixed-ops", type=int, default=1 << 20)
     ap.add_argument("--analytics-edges", type=int, default=1 << 21,
                     help="undirected edges ingested before the analytics")
+    ap.add_argument("--sharded-ops", type=int, default=(1 << 22) + (1 << 20),
+                    help="ops of the main path's stream the sharded phase "
+                         "applies")
     ap.add_argument("--parent", default=None,
                     help="checkout of an earlier commit whose kernel "
                          "wrappers are timed beside this one's")
@@ -1981,14 +2421,17 @@ def main(argv=None):
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
     if args.ingest_ops < (1 << 22) or args.mixed_ops < (1 << 20) or \
-            args.analytics_edges < (1 << 21):
+            args.analytics_edges < (1 << 21) or \
+            args.sharded_ops < (1 << 22) + (1 << 20):
         say("reduced", ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops,
-            analytics_edges=args.analytics_edges)
+            analytics_edges=args.analytics_edges,
+            sharded_ops=args.sharded_ops)
 
     t0 = time.perf_counter()
     chase_lib = phase_build()
     parent = load_parent(args.parent) if args.parent else None
-    store, ids, sample, launches, tally = phase_main(args, torch)
+    stream = lj_stream(args)
+    store, ids, sample, launches, tally = phase_main(args, torch, stream)
     final_tally = phase_rebuild_check(store, torch)
     kernels = phase_kernels(store, ids, sample, launches, tally, final_tally,
                             chase_lib, torch, parent)
@@ -1996,12 +2439,16 @@ def main(argv=None):
     replay = phase_durability(args, store, ids, sample, torch)
     del store
     torch.cuda.empty_cache()
+    sharded, sharded_err = phase_sharded(args, torch, stream)
+    torch.cuda.empty_cache()
     level, alaunches = phase_analytics(args, torch)
     torch.cuda.empty_cache()
     kernels.append(phase_frontier_kernel(level, alaunches, torch, parent))
     del level
-    for line in kernels:    # launches of the durability phase's replay
+    for line in kernels:    # launches of the replay and the sharded phase
         line["replay_launches"] = replay[line["name"]]
+        line["sharded_launches"] = sharded[line["name"]]
+        line["sharded_max_abs_err"] = sharded_err.get(line["name"])
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)

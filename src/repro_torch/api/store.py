@@ -1,6 +1,7 @@
 """``GraphStore`` front door of the port: ``LocalStore`` over the eager
-single-shard ``RadixGraph`` (port of the ``LocalStore`` half of
-``repro.api.store``).
+single-shard ``RadixGraph`` and ``ShardedStore`` over the sharded engine
+``repro_torch.dist.graph_engine`` (port of ``repro.api.store``; the sharded
+backend's ingest and reads).
 
 Epochs: ``capture()`` returns an O(1) handle to the current state and pins
 it, so the next apply copies instead of updating it in place; every read
@@ -15,22 +16,29 @@ on-disk format with the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..convert import state_from_numpy
+from ..core import edgepool as ep
 from ..core import epoch_delta as ed
 from ..core import radixgraph as rg
 from ..core import vertex_table as vt_mod
-from ..core.keys import unpack_keys
-from ..core.radixgraph import RadixGraph
+from ..core.keys import pack_keys, unpack_keys
+from ..core.radixgraph import RadixGraph, clone_state, interleave_undirected
+from ..core.sort import SortSpec
+from ..core.sort_optimizer import optimize_sort
 from ..core.status import Reason
-from .ir import AnalyticsOp, AnalyticsResult, ApplyResult, OpBatch, ReadOp
+from ..dist import graph_engine as ge
+from .ir import (AnalyticsOp, AnalyticsResult, ApplyResult, OpBatch, ReadOp,
+                 UnsupportedOpError)
 from .registry import AnalyticsSpec, analytics_spec
 
-__all__ = ["GraphStore", "Epoch", "LocalStore", "make_store",
+__all__ = ["GraphStore", "Epoch", "LocalStore", "ShardedStore", "make_store",
            "register_backend", "available_backends"]
 
 
@@ -373,6 +381,400 @@ class LocalStore:
         return restore_graph_checkpoint(directory, self, ckpt_id)
 
 
+class ShardedStore:
+    """Sharded backend: vertex-space sharding over ``dist.graph_engine``,
+    every shard on one device, stacked on a leading shard axis.
+
+    Constructor kwargs are the JAX package's (``axis`` only names the
+    shard axis, so one kwargs dict builds both packages) plus ``device``
+    (default ``'cuda'``), resolved here: without the card it names, the
+    constructor raises, although the state is allocated lazily. There is no
+    mesh, and no fused program: ``fuse_scan`` is accepted and changes
+    nothing (each batch is one call of the routed apply either way), while
+    ``pipeline_depth`` still groups a flush's batches into super-batches.
+    Engine closures are built on first use and cached per static spec
+    (``_fn``). The write path keeps the live state vertex-SYNCED
+    (incremental registration, skipped for flushes that create no
+    vertices), so a captured epoch is analytics-ready.
+
+    Epochs: the engine updates the state in place, so ``capture()`` pins the
+    live state and the next apply copies it first (``state_copies``), as
+    does every apply with ``donate_steady_state=False``; a captured state
+    never changes. Vertex batches raise ``UnsupportedOpError``; analytics
+    raise ``NotImplementedError`` until the registry carries mesh programs
+    (``make_dist``)."""
+
+    backend = "sharded"
+    supported_ops = frozenset(("edges",))   # vertex CRUD: LocalStore only
+
+    def __init__(self, n_shards: int = 1, *, n_per_shard: int = 8192,
+                 expected_n: int = 4096, key_bits: int = 32,
+                 pool_blocks: int = 16384, block_size: int = 16,
+                 k_max: int = 128, dmax: int = 2048,
+                 batch: int = 1024, query_batch: int = 256,
+                 m_cap: Optional[int] = None, axis: str = "data",
+                 undirected: bool = False, pack: bool = True,
+                 capacity_factor: float = 1.0,
+                 route_budget: Optional[int] = None,
+                 frontier_budget: Optional[int] = None,
+                 sync_incremental: bool = True,
+                 sync_budget: Optional[int] = None,
+                 sort_capacity_factor: Optional[float] = None,
+                 pipeline_depth: int = 8,
+                 donate_steady_state: bool = True,
+                 fuse_scan: bool = False,
+                 max_delta_frac: float = 0.1,
+                 device: str = "cuda"):
+        self.device = resolve_device(device)
+        assert batch % n_shards == 0 and query_batch % n_shards == 0, \
+            "batch sizes must be divisible by the shard count"
+        self.n_shards = n_shards
+        self.n_per_shard = n_per_shard
+        self.key_bits = key_bits
+        self.batch = batch
+        self.query_batch = query_batch
+        self.axis = axis
+        self.undirected = undirected
+        self.pack = pack
+        self.capacity_factor = capacity_factor
+        self.route_budget = route_budget
+        self.frontier_budget = frontier_budget
+        self.sync_incremental = sync_incremental
+        self.pipeline_depth = pipeline_depth
+        self.donate_steady_state = donate_steady_state
+        self.fuse_scan = fuse_scan
+        cfg = optimize_sort(expected_n, key_bits, 5)
+        self.sspec = SortSpec.from_config(cfg, n_per_shard,
+                                          sort_capacity_factor)
+        self.pspec = ep.PoolSpec(n_blocks=pool_blocks,
+                                 block_size=block_size,
+                                 k_max=k_max, dmax=dmax)
+        self.m_cap = m_cap or self.pspec.capacity_entries
+        if sync_budget is None:
+            # one write step creates at most 2 * batch rows globally
+            sync_budget = min(n_per_shard, 2 * batch // n_shards + 64)
+        self.sync_budget = sync_budget
+        self._live_state = None        # allocated on first use
+        self._fns: Dict[Any, Callable] = {}
+        self._synced_rows = np.zeros((n_shards,), np.int32)
+        self._seq = 0
+        self._snap_cache = None        # (state-ref, per-shard snapshots)
+        self._host_cache = None        # (state-ref, host id/row view)
+        self._full_sync_cache = None   # (state-ref, synced-state) pair
+        self._seen_defrags = 0
+        self._pinned = None            # a captured state: copied, not updated
+        self.state_copies = 0
+        self._restore_gen = 0          # see LocalStore._restore_gen
+        self.max_delta_frac = max_delta_frac
+        self._retained: Dict[int, Epoch] = {}   # pinned epoch chain
+        self.stats = dict(ops_applied=0, ops_dropped=0,
+                          sync_runs=0, sync_skips=0, defrags=0,
+                          defrag_ms=0.0, defrag_host_ms=0.0,
+                          defrag_sync_ms=0.0, tiles_scanned=0,
+                          flushes=0, super_batches=0,
+                          host_stage_ms=0.0, device_sync_ms=0.0)
+
+    @property
+    def state(self):
+        """The live shard-stacked state, allocated on first use."""
+        if self._live_state is None:
+            self._live_state = ge.make_sharded_state(
+                self.sspec, self.pspec, self.n_shards, self.n_per_shard,
+                self.device)
+        return self._live_state
+
+    @state.setter
+    def state(self, value):
+        self._live_state = value
+
+    def _fn(self, key, build) -> Callable:
+        f = self._fns.get(key)
+        if f is None:
+            f = self._fns[key] = build()
+        return f
+
+    def apply_program(self) -> Callable:
+        """The routed apply of one (B, ...) batch."""
+        return self._fn("apply", lambda: ge.make_apply_edges(
+            self.sspec, self.pspec, self.n_shards, pack=self.pack,
+            capacity_factor=self.capacity_factor,
+            route_budget=self.route_budget))
+
+    def analytics_program(self, name: str, **static) -> Callable:
+        """The registered mesh program of ``name``: raises while the
+        registry has none (``make_dist=None``), as the JAX store does."""
+        spec = analytics_spec(name)
+        if spec.make_dist is None:
+            raise NotImplementedError(
+                f"analytics op {name!r} has no mesh combine loop "
+                f"registered (repro_torch.api.registry) — run it on a "
+                f"LocalStore, or register a distributed form")
+        key = ("alg", name, tuple(sorted(static.items())))
+        return self._fn(key, lambda: spec.make_dist(
+            self.sspec, self.pspec, self.n_shards, self.m_cap,
+            self.frontier_budget, **static))
+
+    # ---- mutation ----
+    def _keys(self, ids) -> torch.Tensor:
+        return pack_keys(np.asarray(ids, np.uint64), self.key_bits,
+                         self.device)
+
+    def _writable(self):
+        """The live state, copied first when a capture holds it (or when
+        the store never updates in place)."""
+        if not self.donate_steady_state or self.state is self._pinned:
+            self.state = clone_state(self.state)
+            self.state_copies += 1
+        return self.state
+
+    def apply(self, batch: OpBatch) -> ApplyResult:
+        if batch.kind not in self.supported_ops:
+            raise UnsupportedOpError(
+                batch.kind, self.backend,
+                "sharded vertex-only mutation batches are not routed yet: "
+                "vertices materialize from edge endpoints (plus the owner "
+                "registration sync); use LocalStore for vertex CRUD")
+        if len(batch) == 0:
+            return ApplyResult(0, 0)
+        src, dst, w = batch.src, batch.dst, batch.weight
+        if self.undirected:
+            src, dst, w = interleave_undirected(src, dst, w)
+        B = self.batch
+        N = len(src)
+        NB = (N + B - 1) // B
+        K = max(1, int(self.pipeline_depth))
+        dev = self.device
+        t0 = time.perf_counter()
+        # stage the whole flush once; the ragged tail ships at its true
+        # depth (padding whole batches would advance the clocks)
+        ps = np.zeros((NB * B,), np.uint64)
+        pd = np.zeros((NB * B,), np.uint64)
+        pw = np.zeros((NB * B,), np.float32)
+        mask = np.zeros((NB * B,), bool)
+        ps[:N], pd[:N], pw[:N], mask[:N] = src, dst, w, True
+        sk, dk = self._keys(ps), self._keys(pd)
+        tw = torch.from_numpy(pw).to(dev)
+        tm = torch.from_numpy(mask).to(dev)
+        self._writable()
+        fn = self.apply_program()
+        drops = []
+        for lo in range(0, NB * B, K * B):
+            for a in range(lo, min(lo + K * B, NB * B), B):
+                self.state, d = fn(self.state, sk[a:a + B], dk[a:a + B],
+                                   tw[a:a + B], tm[a:a + B])
+                drops.append(d)
+            self.stats["super_batches"] += 1
+        self.stats["host_stage_ms"] = round(
+            self.stats["host_stage_ms"] +
+            (time.perf_counter() - t0) * 1000.0, 3)
+        # ONE host fetch per flush: drops, rebuilds, touched tiles and
+        # each shard's row count (for the sync)
+        t1 = time.perf_counter()
+        pool = self.state.pool
+        dropped, dsum, tiles, *rows = ep._fetch(
+            torch.stack(drops).sum(), pool.defrags.sum(),
+            pool.tiles_scanned.sum(), self.state.vt.num_rows)
+        if dsum != self._seen_defrags:            # some shard rebuilt
+            now = time.perf_counter()
+            self.stats["defrag_ms"] = round(
+                self.stats["defrag_ms"] + (now - t0) * 1000.0, 3)
+            self.stats["defrag_host_ms"] = round(
+                self.stats["defrag_host_ms"] + (t1 - t0) * 1000.0, 3)
+            self.stats["defrag_sync_ms"] = round(
+                self.stats["defrag_sync_ms"] + (now - t1) * 1000.0, 3)
+            self._seen_defrags = dsum
+        self.stats["device_sync_ms"] = round(
+            self.stats["device_sync_ms"] +
+            (time.perf_counter() - t1) * 1000.0, 3)
+        self.stats["flushes"] += 1
+        self._seq += 1
+        self._snap_cache = self._host_cache = self._full_sync_cache = None
+        # raw submitted ops (undirected doubling is an internal detail)
+        self.stats["ops_applied"] += len(batch)
+        self.stats["ops_dropped"] += dropped
+        self.stats["defrags"] = self._seen_defrags
+        self.stats["tiles_scanned"] = tiles
+        if self.sync_incremental:
+            self._maybe_sync_live(np.asarray(rows, np.int32))
+        return ApplyResult(len(batch), dropped)
+
+    def _maybe_sync_live(self, rows: np.ndarray):
+        """Incremental vertex sync after a flush that left each shard with
+        ``rows`` rows: only rows created since the last sync are
+        registered at their owner shards; a flush that created no vertex
+        skips it."""
+        if np.array_equal(rows, self._synced_rows):
+            self.stats["sync_skips"] += 1
+            return
+        fn = self._fn(("sync_inc",), lambda: ge.make_sync_vertices(
+            self.sspec, self.pspec, self.n_shards, budget=self.sync_budget,
+            incremental=True))
+        # the host row counts bound the scan to the rows created since
+        self.state = fn(self.state, self._synced_rows.tolist(),
+                        rows.tolist())
+        self._synced_rows = np.asarray(ep._fetch(self.state.vt.num_rows),
+                                       np.int32)
+        self.stats["sync_runs"] += 1
+
+    # ---- epochs ----
+    def capture(self) -> Epoch:
+        self._pinned = self.state
+        return Epoch(self.state, self._seq,
+                     cache={"gen": self._restore_gen})
+
+    def clock(self, at: Optional[Epoch] = None) -> int:
+        state = at.state if at is not None else self.state
+        return int(state.pool.clock[0]) - 1
+
+    def _state(self, at: Optional[Epoch]):
+        return at.state if at is not None else self.state
+
+    def _synced(self, state):
+        """A vertex-synced view of ``state`` (identity when the write path
+        keeps the live state registered as it goes); a full sync runs on a
+        copy, so ``state`` itself never changes."""
+        if self.sync_incremental:
+            return state
+        if self._full_sync_cache is not None and \
+                self._full_sync_cache[0] is state:
+            return self._full_sync_cache[1]
+        fn = self._fn(("sync",), lambda: ge.make_sync_vertices(
+            self.sspec, self.pspec, self.n_shards))
+        synced = fn(clone_state(state))
+        self.state_copies += 1
+        self.stats["sync_runs"] += 1
+        self._full_sync_cache = (state, synced)
+        return synced
+
+    # ---- reads ----
+    def _snapshots(self, state):
+        if self._snap_cache is not None and self._snap_cache[0] is state:
+            return self._snap_cache[1]
+        fn = self._fn(("snapshot",), lambda: ge.make_snapshot(
+            self.sspec, self.pspec, self.n_shards, self.m_cap))
+        snaps = fn(state)
+        self._snap_cache = (state, snaps)
+        return snaps
+
+    def _host_view(self, state):
+        """Host-side ID/row tables of a state for lookup, neighbors and
+        num_vertices: one device pull per state, then each shard's live
+        rows sorted by vertex ID (a search per query)."""
+        if self._host_cache is not None and self._host_cache[0] is state:
+            return self._host_cache[1]
+        vid = unpack_keys(state.vt.ids)
+        live = (state.vt.del_time == 0).cpu().numpy()
+        owner = ge.shard_of_keys(state.vt.ids, self.n_shards).cpu().numpy()
+        row_vid, row_of = [], []
+        for s in range(self.n_shards):
+            rows = np.nonzero(live[s])[0]
+            order = np.argsort(vid[s][rows], kind="stable")
+            row_vid.append(vid[s][rows][order])
+            row_of.append(rows[order])
+        view = dict(vid=vid, live=live, owner=owner, row_vid=row_vid,
+                    row_of=row_of, present=np.unique(vid[live]))
+        self._host_cache = (state, view)
+        return view
+
+    def _degrees(self, state, ids) -> np.ndarray:
+        fn = self._fn(("degree",), lambda: ge.make_khop_counts(
+            self.sspec, self.pspec, self.n_shards))
+        Q = self.query_batch
+        keys = self._keys(ids)
+        n = keys.shape[0]
+        buf = torch.zeros((-(-n // Q) * Q, 2), dtype=keys.dtype,
+                          device=self.device)
+        buf[:n] = keys          # zero keys pad the tail; sliced off below
+        out = [fn(state, buf[lo:lo + Q]) for lo in range(0, n, Q)]
+        return torch.cat(out).cpu().numpy()[:n] if out \
+            else np.zeros((0,), np.int32)
+
+    @staticmethod
+    def _search(sorted_ids: np.ndarray, ids: np.ndarray):
+        """(hit, pos): whether each of ``ids`` is in ``sorted_ids``, and
+        where."""
+        if not len(sorted_ids):
+            return np.zeros(ids.shape, bool), np.zeros(ids.shape, np.int64)
+        pos = np.minimum(np.searchsorted(sorted_ids, ids),
+                         len(sorted_ids) - 1)
+        return sorted_ids[pos] == ids, pos
+
+    def _neighbors(self, state, ids):
+        """Edges live in the SOURCE's hash-owner shard: read that shard's
+        CSR row of each ID, gathering only those rows off the device."""
+        view = self._host_view(state)
+        snaps = self._snapshots(state)
+        ids = np.asarray(ids, np.uint64)
+        shard = ge.shard_of_keys(pack_keys(ids, self.key_bits, "cpu"),
+                                 self.n_shards).numpy()
+        row = np.full(ids.shape, -1, np.int64)
+        for s in range(self.n_shards):
+            sel = np.nonzero(shard == s)[0]
+            hit, pos = self._search(view["row_vid"][s], ids[sel])
+            row[sel[hit]] = view["row_of"][s][pos[hit]]
+        found = np.nonzero(row >= 0)[0]
+        dev = snaps.indptr.device
+        fs = torch.from_numpy(shard[found].astype(np.int64)).to(dev)
+        fr = torch.from_numpy(row[found]).to(dev)
+        lo = snaps.indptr[fs, fr].to(torch.int64)
+        cnt = snaps.indptr[fs, fr + 1].to(torch.int64) - lo
+        # entry e of the answer: shard fs[q], CSR slot lo[q] + its rank
+        start = torch.cumsum(cnt, 0) - cnt
+        sh = torch.repeat_interleave(fs, cnt)
+        slot = torch.repeat_interleave(lo - start, cnt) + torch.arange(
+            sh.shape[0], device=dev)
+        dst = snaps.dst[sh, slot].cpu().numpy()
+        wgt = snaps.weight[sh, slot].cpu().numpy()
+        nid = view["vid"][sh.cpu().numpy(), dst]
+        counts = np.zeros(ids.shape, np.int64)
+        counts[found] = cnt.cpu().numpy()
+        ends = np.cumsum(counts)
+        return [(nid[e - c:e], wgt[e - c:e]) for c, e in zip(counts, ends)]
+
+    def read(self, op: ReadOp, at: Optional[Epoch] = None):
+        state = self._state(at)
+        if op.kind == "degree":
+            return self._degrees(state, op.ids)
+        if op.kind == "lookup":
+            present = self._host_view(self._synced(state))["present"]
+            return self._search(present, np.asarray(op.ids, np.uint64))[0]
+        if op.kind == "neighbors":
+            return self._neighbors(state, op.ids)
+        if op.kind == "num_vertices":
+            view = self._host_view(self._synced(state))
+            mine = view["live"] & (view["owner"] ==
+                                   np.arange(self.n_shards)[:, None])
+            return int(np.sum(mine))
+        if op.kind == "num_edges":
+            return int(self._snapshots(state).m.sum())
+        if op.kind == "snapshot":
+            return self._snapshots(state)
+        raise ValueError(op.kind)
+
+    # ---- analytics ----
+    def analytics(self, op: AnalyticsOp, at: Optional[Epoch] = None):
+        return self.analytics_result(op, at).value
+
+    def analytics_result(self, op: AnalyticsOp, at: Optional[Epoch] = None,
+                         _reason: str = "") -> AnalyticsResult:
+        """Mesh analytics: raises ``NotImplementedError`` (through
+        ``analytics_program``) while the registry has no mesh program."""
+        self.analytics_program(op.name, **dict(op.params))
+        raise NotImplementedError(
+            f"sharded analytics of {op.name!r} are not ported yet")
+
+    # ---- epoch retention (warm-chain pins) ----
+    def pin_epoch(self, at: Epoch):
+        self._retained[at.seq] = at
+
+    def release_epoch(self, at: Epoch):
+        self._retained.pop(at.seq, None)
+
+    @property
+    def retained_epochs(self) -> int:
+        return len(self._retained)
+
+
 # ---- backend registry ----
 
 _BACKENDS: Dict[str, Callable[..., GraphStore]] = {}
@@ -390,6 +792,7 @@ def available_backends():
 
 def make_store(backend: str, **kwargs) -> GraphStore:
     """Construct a registered backend: ``make_store('local', n_max=...,
+    device='cuda')`` or ``make_store('sharded', n_shards=...,
     device='cuda')``."""
     if backend not in _BACKENDS:
         raise KeyError(f"unknown GraphStore backend {backend!r}; "
@@ -398,3 +801,4 @@ def make_store(backend: str, **kwargs) -> GraphStore:
 
 
 register_backend("local", LocalStore)
+register_backend("sharded", ShardedStore)

@@ -6,7 +6,11 @@ state)`` has this form — and builds the port's ``GraphState`` on
 ``device``. uint32 leaves (vertex IDs) become int64; every other leaf
 keeps its dtype; a leaf that is already a tensor is moved to
 ``device``. ``state_to_numpy`` maps back, with the JAX package's dtypes
-(the on-disk dtypes of a checkpoint). Fields are matched by name, so the port never sees a JAX object.
+(the on-disk dtypes of a checkpoint), as copies that later in-place
+applies leave unchanged. A sharded state (every leaf with a leading shard
+axis, as ``dist.graph_engine.make_sharded_state`` and the JAX package
+stack it) converts the same way. Fields are matched by name, so the port
+never sees a JAX object.
 ``snapshot_from_numpy`` / ``snapshot_to_numpy`` do the same for a CSR
 ``GraphSnapshot``.
 """
@@ -39,8 +43,15 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``: on the CPU, ``.numpy()`` alone would share
+    the tensor's memory, which later in-place applies change."""
     a = t.detach().cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a
+
+
+def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    a = _host(t)
     return a.astype(np.uint32) if name in _UINT32_FIELDS else a
 
 
@@ -60,8 +71,8 @@ def state_from_numpy(tree, device="cuda") -> GraphState:
 def state_to_numpy(state: GraphState) -> GraphState:
     """The port's state as a ``GraphState`` of numpy arrays (JAX dtypes)."""
     s = state.sort
-    sort = SortState(tuple(p.cpu().numpy() for p in s.pools),
-                     s.counts.cpu().numpy(), s.overflow.cpu().numpy())
+    sort = SortState(tuple(_host(p) for p in s.pools), _host(s.counts),
+                     _host(s.overflow))
     vt = VertexTable(**{f: _to_numpy(f, getattr(state.vt, f))
                         for f in VertexTable._fields})
     pool = EdgePool(**{f: _to_numpy(f, getattr(state.pool, f))

@@ -57,9 +57,10 @@ CHUNK_BYTES = 256 << 20
 
 
 def _fetch(*ts: torch.Tensor):
-    """One device->host round trip for a few scalars (counted)."""
+    """One device->host round trip for a few small tensors (counted): their
+    elements as one flat list of ints."""
     SYNCS["host_syncs"] += 1
-    return torch.stack([t.to(I64) for t in ts]).tolist()
+    return torch.cat([t.to(I64).reshape(-1) for t in ts]).tolist()
 
 
 @dataclass(frozen=True)

@@ -249,27 +249,53 @@ def test_wrappers_check_what_the_kernels_assume_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_append_is_one_kernel_per_call_on_card(cuda_device):
-    """One call, one launch: the profiler sees one kernel on the card per
-    ``append_edges`` call, and the launch counter one launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def test_append_is_one_kernel_per_call_on_card(cuda_device, tmp_path):
+    """One call, one launch: three ``append_edges`` calls captured in a
+    CUDA graph make exactly three nodes, each an ``append_kernel`` kernel
+    node, and the launch counter counts three launches. The graph holds
+    every node the calls launched (read through the driver API), so the
+    count cannot drop one, as profiler events can."""
+    import ctypes
+    import re
     from repro_torch.kernels import ops
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+            ("cuGraphGetNodes", [ptr, ctypes.POINTER(ptr),
+                                 ctypes.POINTER(ctypes.c_size_t)]),
+            ("cuGraphNodeGetType", [ptr, ctypes.POINTER(i32)]),
+            ("cuGraphDebugDotPrint", [ptr, ctypes.c_char_p, ctypes.c_uint])):
+        getattr(cu, name).argtypes = argtypes
+        getattr(cu, name).restype = i32
     c = append_case("extents")
     args = _cuda(_t(*[c[k] for k in APPEND_ARGS]), cuda_device)
     append_edges(*args)                      # build and load first
     torch.cuda.synchronize()
     before = ops.launch_counts()["append"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         for _ in range(3):
             append_edges(*args)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-    assert len(kernels) == 3, kernels
-    assert all("append_kernel" in k for k in kernels), kernels
     assert ops.launch_counts()["append"] == before + 3
+    raw = ptr(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ptr * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = i32(-1)
+        assert cu.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    assert kinds == [0, 0, 0], kinds          # CU_GRAPH_NODE_TYPE_KERNEL
+    # the kernels' names, from the graph's verbose DOT description
+    dot = tmp_path / "append.dot"
+    assert cu.cuGraphDebugDotPrint(raw, str(dot).encode(), 1) == 0
+    blocks = re.split(r'^\s*(?="graph_\d+_node_\d+"\s*\[)', dot.read_text(),
+                      flags=re.M)
+    kernels = [b for b in blocks if "KERNEL" in b]
+    assert len(kernels) == 3, dot.read_text()
+    assert all("append_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda

@@ -187,6 +187,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.epoch_delta, repro_torch.serve\n"
         "import repro_torch.analytics.incremental\n"
         "import repro_torch.storage, repro_torch.storage.crash_smoke\n"
+        "import repro_torch.dist, repro_torch.dist.graph_engine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -206,6 +207,7 @@ def test_default_device_needs_a_card():
     tg = TG(device="cpu", n_max=64)
     tree = state_to_numpy(tg.state)
     for build in (lambda: make_store("local", n_max=64),
+                  lambda: make_store("sharded", n_shards=2),
                   lambda: TG(n_max=64),
                   lambda: TS.make_sort(tg.sort_spec),
                   lambda: TV.make_vertex_table(64),
@@ -222,7 +224,7 @@ def test_later_slices_raise_and_registry(tmp_path):
     kw = dict(device="cpu", n_max=256, expected_n=64, pool_blocks=256,
               batch=64)
     s = make_store("local", **kw)
-    assert available_backends() == ["local"]
+    assert available_backends() == ["local", "sharded"]
     assert s.supported_ops == frozenset(("edges", "add_vertices",
                                          "delete_vertices"))
     s.apply(OpBatch.edges(np.array([1, 2], np.uint64),
@@ -259,7 +261,8 @@ def test_later_slices_raise_and_registry(tmp_path):
     prev = s.analytics_result(AnalyticsOp("degree_map"), e)
     assert s.analytics_advance(AnalyticsOp("degree_map"), prev, e) is prev
     with pytest.raises(KeyError):
-        make_store("sharded")
+        make_store("mesh")          # not a registered backend
+    assert make_store("sharded", device="cpu", n_shards=2).n_shards == 2
     e = s.capture()
     s.pin_epoch(e)
     assert s.retained_epochs == 1
