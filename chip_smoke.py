@@ -78,7 +78,27 @@ Phases (any failure raises and the script exits non-zero):
    from a shard of the final state, each shape timed alone; then 2
    more batches under ``torch.profiler`` (sync share, device busy share,
    host ops per batch);
-7. analytics path, on a second store with the same LiveJournal-sized
+7. sharded analytics, on the sharded phase's final store before it is
+   freed (``m_cap`` 2^21 and ``query_batch`` 64 a shard): a ``LocalStore``
+   of the port on the card takes the same ops as the reference; bfs and
+   sssp from the hub, pagerank (20 iterations, and to ``PR_ADVANCE_TOL``),
+   wcc, bc over 8 sources (16 levels), khop k = 1, 2, 3 over 16 sources,
+   the degree map, ``num_edges`` and a bfs from an absent source, each
+   once through ``store.analytics_result`` (the program alone timed
+   apart: device ms against host ms; iterations, host fetches, frontier
+   and lookup launches), equal to the LocalStore's (PageRank and BC
+   within 1e-5 relative) and to numpy/scipy (WCC: labels along
+   out-edges, the store being directed); then advances of bfs, sssp,
+   wcc, pagerank (tol), the degree map and ``num_edges`` over an
+   insert-only delta of 4096 edges, each incremental and equal to a
+   scratch run (PageRank in L1 to float64 iterations from the same
+   seed). Launch counters are zeroed before and read after, less the
+   reference's and the checks' launches; the frontier kernel and
+   ``sort_lookup`` must have run. Then ``sort_lookup`` at every key
+   count the sharded phase did not call (the dense route's 2^25 keys a
+   shard among them) and the frontier kernel at the largest BFS level
+   of a shard, each against its plain version (bit-exact), timed alone;
+8. analytics path, on a second store with the same LiveJournal-sized
    state, undirected, after the first is freed: 2^21 powerlaw edges
    (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
    phase writes), then each of the nine registered analytics
@@ -92,19 +112,21 @@ Phases (any failure raises and the script exits non-zero):
    runs made only to time or check; the frontier kernel must have run.
    Then the frontier kernel against its plain version on the largest BFS
    level's inputs (bit-exact);
-8. whole-path parity at small size: the same stream with every kernel, and
+9. whole-path parity at small size: the same stream with every kernel, and
    with every impl forced to its plain version, gives identical state,
    and bfs / khop give identical depths and counts; the same for the
    sharded engine (4 shards, route budget 64 so that the compacted route
    and its dense fallback both run, a budgeted vertex sync after each
-   batch, the degree and snapshot reads): every stacked leaf and answer
+   batch, the degree and snapshot reads, then bfs, khop k = 2, wcc and
+   sssp with frontier budget 64): every stacked leaf and answer
    identical, and the plain run launches nothing.
 
 The ``kernels`` line gives each kernel's main-path ``launches``, the
 durability replay's ``replay_launches``, the sharded phase's
 ``sharded_launches`` and the largest error of its sharded shapes
-(``sharded_max_abs_err``, null where the phase did not call it). The
-last two lines are the
+(``sharded_max_abs_err``, null where the phase did not call it), and the
+sharded analytics' ``sharded_analytics_launches`` and
+``sharded_analytics_max_abs_err``. The last two lines are the
 ``kernels`` JSON object and the ``ok`` object.
 Nothing here imports JAX or the ``repro`` package.
 """
@@ -1500,11 +1522,17 @@ def crash_smoke(args, cdir, torch):
 # the sharded phase's store: 4 shards on the one card. The pools total the
 # main path's 2^23 blocks of 16; each vertex table is as large as the main
 # path's (at LiveJournal scale nearly every vertex gets a stub row in every
-# source shard); every other knob keeps the JAX package's default
+# source shard). ``m_cap``, the CSR pad a shard's snapshot and analytics
+# take, is the least power of two over the largest shard's live edges plus
+# the analytics delta (~1.27M a shard; the phase fails if a snapshot
+# reaches it). ``query_batch`` 64 keeps k-hop's dense route to a
+# (2^23, 2 + 2) payload a shard (2^25 routed rows of 5 int64 words: 1.34 GB
+# a shard); the degree reads ride the same chunks. Every other knob keeps
+# the JAX package's default
 SHARDED_STORE = dict(device="cuda", n_shards=4, n_per_shard=2 ** 23,
                      expected_n=LJ_VERTICES, key_bits=32,
                      pool_blocks=2 ** 21, block_size=16, k_max=256,
-                     dmax=4096, batch=4096, query_batch=4096)
+                     dmax=4096, batch=4096, query_batch=64, m_cap=2 ** 21)
 
 
 def phase_sharded(args, torch, stream):
@@ -1638,7 +1666,10 @@ def phase_sharded(args, torch, stream):
     if syncs["defrag_dense"]:
         raise AssertionError("a sharded rebuild took the dense path")
     errs = sharded_kernel_checks(store, st, tally, launches, torch)
-    profile = sharded_profile(store, ids, torch)
+    profile, (psi, pdi, pw) = sharded_profile(store, ids, torch)
+    m_shard = snaps.m.tolist()
+    if max(m_shard) + DELTA_EDGES >= store.m_cap:
+        raise AssertionError(f"a shard's snapshot reaches m_cap: {m_shard}")
     say("sharded", card=card_line(), ops=n_ops, batches=n_batches,
         seconds=round(time.perf_counter() - t_start, 3),
         updates_per_s=n_ops / t_apply,
@@ -1654,21 +1685,32 @@ def phase_sharded(args, torch, stream):
         launches=launches,
         launches_per_batch={k: v / n_batches for k, v in launches.items()},
         row_high_water=st.vt.num_rows.tolist(),
-        vertices=n_vertices, live_edges=n_edges,
+        vertices=n_vertices, live_edges=n_edges, live_edges_per_shard=m_shard,
+        m_cap=store.m_cap, query_batch=store.query_batch,
         host_view_build_ms=t_view * 1e3, snapshots_build_ms=t_snap * 1e3,
         read_4096_ms=read_ms, reads_checked=dict(
             lookup=len(q), degree=int(within.sum()), neighbors=len(q)),
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         state_copies=store.state_copies, oracle="agrees", **profile)
-    del store, st, snaps, view
-    return launches, errs
+    del st, snaps, view
+    # the store and every op it took (the profiled batches too) go on to
+    # the sharded analytics
+    return launches, errs, dict(
+        store=store, ids=ids, si=np.concatenate([si, psi]),
+        di=np.concatenate([di, pdi]), w=np.concatenate([w, pw]),
+        tally=tally)
 
 
-def sharded_kernel_checks(store, st, tally, launches, torch):
-    """Each kernel of the sharded phase against its plain version at every
+def sharded_kernel_checks(store, st, tally, launches, torch, level=None,
+                          must=INGEST_KERNELS, line="sharded_kernel_shapes"):
+    """Each kernel of a sharded phase against its plain version at every
     shape the phase called it with (``tally``), on inputs from a shard
-    view of the final state (shape i on shard i mod n_shards), each timed
-    alone (CUDA events, 5 calls). Returns each kernel's largest error."""
+    view of ``st`` (shape i on shard i mod n_shards), and the frontier
+    kernel on ``level`` (the largest BFS level: shard, its (m_cap, 1) CSR
+    view, the frontier bitmap, the level, its vertices), each timed alone
+    (CUDA events, 5 calls; the plain version 3). Fails when a kernel of
+    ``must`` was launched and not checked. Returns each kernel's largest
+    error."""
     from repro_torch.dist import graph_engine as ge
     n, spec, dev = store.n_shards, store.pspec, store.device
     t0 = time.perf_counter()
@@ -1679,6 +1721,7 @@ def sharded_kernel_checks(store, st, tally, launches, torch):
         out_k, out_p = check()
         entry = dict(name=name, shape=shape, max_abs_err=max_abs_err(
             out_k, out_p), ms=cuda_ms(kerns[0], reps=5, warm=1),
+            plain_ms=cuda_ms(plain, reps=3, warm=1),
             bound_ms=max(nbytes / HBM_BYTES_PER_S,
                          nops / F32_OPS_PER_S) * 1e3, **at)
         shapes.append(entry)
@@ -1711,30 +1754,51 @@ def sharded_kernel_checks(store, st, tally, launches, torch):
                 live_sizes(v.vt), lo, hi, K, gen).contiguous(), W)
         else:
             defrag_case(record, v, spec, store.n_per_shard, *shape, gen)
+    if level is not None:
+        s_, view, fb, lv, size = level
+        at.update(shard=s_, path_calls=launches["frontier_expand"],
+                  bfs_level=lv, frontier_vertices=size)
+        frontier_case(record, *view, fb)
     torch.cuda.synchronize()
     errs = {}
     for e in shapes:
         errs[e["name"]] = max(errs.get(e["name"], 0.0), e["max_abs_err"])
-    missing = [k for k in INGEST_KERNELS if launches[k] and k not in errs]
+    missing = [k for k in must if launches[k] and k not in errs]
     if missing:
         raise AssertionError(f"sharded kernels launched but not checked: "
                              f"{missing}")
     empty = [(e["name"], e["shape"]) for e in shapes if e.get("occupied") == 0]
     if empty:
         raise AssertionError(f"sharded shapes checked on empty rows: {empty}")
-    say("sharded_kernel_shapes", card=card_line(), shapes=shapes,
-        ms_is="kernel wrapper calls between CUDA events, 5 calls",
-        seconds=round(time.perf_counter() - t0, 3))
+    say(line, card=card_line(), shapes=shapes,
+        ms_is="kernel wrapper calls between CUDA events, 5 calls (plain "
+        "version: 3)", seconds=round(time.perf_counter() - t0, 3))
     return errs
+
+
+def frontier_case(record, owner, dst, valid, fb):
+    """``frontier_expand`` of the frontier bitmap ``fb`` over a CSR view,
+    visited empty (as a distributed BFS level expands it)."""
+    import torch
+    from repro_torch.kernels import frontier as kf
+    args_ = (owner, dst, valid, fb, torch.zeros_like(fb))
+    NB, BS = dst.shape
+    W = fb.shape[0]
+    record("frontier_expand", [NB, BS, W],
+           (lambda: kf.frontier_expand(*args_), None),
+           lambda: kf.frontier_expand_plain(*args_),
+           lambda: ([kf.frontier_expand(*args_)],
+                    [kf.frontier_expand_plain(*args_)]),
+           NB * 4 + NB * BS * 5 + 3 * W * 4, NB * BS)
 
 
 def sharded_profile(store, ids, torch, n_batches=2):
     """Where a steady-state sharded batch's time goes: ``n_batches`` more
     mixed batches (after the oracle checks) under ``torch.profiler``:
     wall ms a batch, the share of it in the vertex sync, host ops a batch
-    and the device's busy share. Two batches: a trace of 8 (~60,000
-    kernel events) was followed by a frontier-kernel trace that kept no
-    event."""
+    and the device's busy share. Returns them and the ops applied. Two
+    batches: a trace of 8 (~60,000 kernel events) was followed by a
+    frontier-kernel trace that kept no event."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import OpBatch
     rng = np.random.default_rng(4)
@@ -1769,15 +1833,18 @@ def sharded_profile(store, ids, torch, n_batches=2):
         profile_sync_share=sum(sync_s) / wall,
         profile_device_busy_share=device_busy_us(prof) / (wall * 1e6),
         profile_host_ops_per_batch=sum(
-            e.count for e in ka if e.key.startswith("aten::")) / n_batches)
+            e.count for e in ka if e.key.startswith("aten::")) / n_batches
+    ), (si, di, w)
 
 
 def sharded_parity(torch, device="cuda"):
     """A small stream through the sharded engine (4 shards, route budget
     64: both routes run) twice, with every kernel and with every plain
-    version, plus a budgeted vertex sync and the degree and snapshot
-    reads: every stacked leaf and every answer identical, and the plain
-    run launches nothing. The engine functions are driven directly."""
+    version, plus a budgeted vertex sync, the degree and snapshot reads
+    and the analytics programs (bfs, k-hop k = 2, wcc, sssp; frontier
+    budget 64): every stacked leaf and every answer identical, and the
+    plain run launches nothing. The engine functions are driven
+    directly."""
     import dataclasses
     from repro_torch.core import edgepool as ep
     from repro_torch.core.keys import pack_keys
@@ -1803,8 +1870,10 @@ def sharded_parity(torch, device="cuda"):
     plain = (dataclasses.replace(sspec, lookup_impl="ref"),
              dataclasses.replace(pspec, append_impl="plain",
                                  compact_impl="ref"))
+    src_key = pack_keys(ids[si[:1]], 32, dev)[0]
+    m_cap = pspec.capacity_entries
     runs = []
-    for ss, ps in ((sspec, pspec), plain):
+    for (ss, ps), walk in (((sspec, pspec), "auto"), (plain, "ref")):
         kops.reset_launch_counts()
         r0 = dict(ge.ROUTES)
         apply = ge.make_apply_edges(ss, ps, n, route_budget=64)
@@ -1820,9 +1889,17 @@ def sharded_parity(torch, device="cuda"):
             drops.append(d)
         deg = ge.make_khop_counts(ss, ps, n)(state, q)
         snap = ge.make_snapshot(ss, ps, n, ps.capacity_entries)(state)
+        # the analytics programs, budgeted as the apply (both routes)
+        kw = dict(frontier_budget=64)
+        bfs = ge.make_bfs(ss, ps, n, m_cap, impl=walk, **kw)(state, src_key)
+        khop = ge.make_khop_counts(ss, ps, n, k=2, m_cap=m_cap, impl=walk,
+                                   **kw)(state, q[:64])
+        wcc = ge.make_wcc(ss, ps, n, m_cap, **kw)(state)
+        sssp = ge.make_sssp(ss, ps, n, m_cap, **kw)(state, src_key)
         torch.cuda.synchronize()
         runs.append(dict(state=state, drops=torch.stack(drops), deg=deg,
-                         snap=snap, launches=kops.launch_counts(),
+                         snap=snap, bfs=bfs, khop=khop, wcc=wcc, sssp=sssp,
+                         launches=kops.launch_counts(),
                          routes={k: ge.ROUTES[k] - r0[k] for k in r0}))
     a, b = runs
     la, lb = leaves(a["state"]), leaves(b["state"])
@@ -1830,33 +1907,40 @@ def sharded_parity(torch, device="cuda"):
                                      for x, y in zip(la, lb)):
         raise AssertionError("sharded kernel path and plain path states "
                              "differ")
-    for k in ("drops", "deg"):
+    for k in ("drops", "deg", "bfs", "khop", "wcc", "sssp"):
         if not torch.equal(a[k], b[k]):
             raise AssertionError(f"sharded kernel and plain {k} differ")
     if not all(torch.equal(x, y) for x, y in zip(a["snap"], b["snap"])):
         raise AssertionError("sharded kernel and plain snapshots differ")
     if max(b["launches"].values()) != 0 or min(
-            a["launches"][k] for k in INGEST_KERNELS) <= 0:
+            a["launches"][k] for k in INGEST_KERNELS +
+            ANALYTICS_KERNELS) <= 0:
         raise AssertionError(f"sharded launch counts {a['launches']} "
                              f"{b['launches']}")
     if not (a["routes"]["compact"] and a["routes"]["dense_fallback"]):
         raise AssertionError(f"both routes must run: {a['routes']}")
     if int(a["drops"].sum()):
         raise AssertionError("sharded parity stream dropped ops")
+    if int(a["bfs"].max()) < 2 or int(a["khop"].sum()) <= 0:
+        raise AssertionError("sharded parity analytics are trivial")
     say("sharded_parity", identical=True, leaves=len(la), n_shards=n,
         defrags=a["state"].pool.defrags.tolist(), routes=a["routes"],
         kernel_launches=a["launches"], plain_launches=b["launches"],
-        live_edges=int(a["snap"].m.sum()))
+        live_edges=int(a["snap"].m.sum()),
+        bfs_levels=int(a["bfs"].max()), khop_counts=a["khop"].tolist()[:16])
 
 
-def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None):
+def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None,
+                  x0=None):
     """float64 power iteration with the port's dangling rule: dangling
-    mass spreads uniformly over the active (present) vertices."""
+    mass spreads uniformly over the active (present) vertices. It starts
+    uniform, or from ``x0`` (one value per vertex index)."""
     act = np.zeros(n_vertices, bool)
     act[present] = True
     n_act = float(len(present))
     deg = np.bincount(osrc, minlength=n_vertices).astype(np.float64)
-    x = np.where(act, 1.0 / n_act, 0.0)
+    x = np.where(act, 1.0 / n_act, 0.0) if x0 is None else \
+        np.where(act, x0, 0.0)
     it = 0
     while it < iters:
         contrib = np.where(deg > 0, x / np.maximum(deg, 1.0), 0.0)
@@ -2026,6 +2110,444 @@ def pagerank_float32_probe(snap, torch):
     return out
 
 
+def launch_excluder():
+    """``(uncounted, excluded)``: ``uncounted(fn)`` runs ``fn`` and adds
+    the kernel launches it made to ``excluded`` (by kernel), so that runs
+    made only to time or check an answer can be taken out of a path's
+    counts."""
+    from repro_torch.kernels import ops as kops
+    excluded = dict.fromkeys(kops.launch_counts(), 0)
+
+    def uncounted(fn):
+        before = kops.launch_counts()
+        out = fn()
+        for k, v in kops.launch_counts().items():
+            excluded[k] += v - before[k]
+        return out
+    return uncounted, excluded
+
+
+def by_vertex(value: dict, vids: np.ndarray) -> np.ndarray:
+    """A per-vertex answer ``{vertex ID: value}`` as an array in the order
+    of ``vids`` (each must be a key)."""
+    keys = np.fromiter(value.keys(), np.uint64, len(value))
+    vals = np.array(list(value.values()))
+    order = np.argsort(keys)
+    pos = np.searchsorted(keys[order], vids)
+    if not np.array_equal(keys[order][np.minimum(pos, len(keys) - 1)],
+                          vids):
+        raise AssertionError("a vertex is missing from a per-vertex answer")
+    return vals[order][pos]
+
+
+def float_errs(a: dict, b: dict, rtol=1e-5, atol=1e-7) -> dict:
+    """Two per-vertex float answers with the same keys: the largest
+    ``|a - b|``; the JAX suite's cross-backend error, the largest
+    ``|a - b| / max(1, |b|)`` (held to 1e-5); the largest ``|a - b| /
+    max(|b|, atol)``, and the vertices outside ``|a - b| <= atol + rtol
+    |b|`` (1e-5 relative with an absolute floor of 1e-7; reported)."""
+    if set(a) != set(b):
+        raise AssertionError("per-vertex answers over different vertices")
+    ks = np.fromiter(b.keys(), np.uint64, len(b))
+    x, y = by_vertex(a, ks).astype(np.float64), by_vertex(
+        b, ks).astype(np.float64)
+    d = np.abs(x - y)
+    return dict(max_abs_err=float(d.max(initial=0.0)),
+                jax_suite_err=float((d / np.maximum(np.abs(y), 1.0)).max(
+                    initial=0.0)),
+                max_rel_err=float((d / np.maximum(np.abs(y), atol)).max(
+                    initial=0.0)),
+                outside_rel_1e5_abs_1e7=int(
+                    (d > atol + rtol * np.abs(y)).sum()))
+
+
+def sharded_program(store, name, params):
+    """The sharded program of a store call alone (its ID resolution, no
+    per-vertex dict): what ``analytics_result`` runs on the device."""
+    from repro_torch.api import analytics_spec
+    spec = analytics_spec(name)
+    p = dict(params)
+    dyn, queries = store._resolve_dyn(spec, p)
+    fn = store.analytics_program(name, **p)
+    if queries is None:
+        return fn(store.state, *dyn)
+    import torch
+    keys, Q = store._keys(queries), store.query_batch
+    for lo in range(0, len(queries), Q):
+        buf = torch.full((Q, 2), 0xFFFFFFFF, dtype=torch.int64,
+                         device=store.device)
+        buf[:min(Q, len(queries) - lo)] = keys[lo:lo + Q]
+        fn(store.state, buf)
+
+
+def sharded_oracle_checks(n_vertices, ids, present, osrc, odst, ow, hub,
+                          khop_src, res, local_pr, bfs_iters=32):
+    """The sharded store's answers against numpy/scipy over the oracle's
+    edge list: bfs depths, k-hop counts, sssp distances, PageRank (L1 to
+    float64), the edge count, and WCC's labels (on this directed graph
+    they flow along out-edges: the least ID of a vertex's ancestors, not
+    scipy's weak components). PageRank is held per vertex as well: its
+    largest relative error to float64 (over ranks past 1e-7) at most
+    twice the LocalStore's (``local_pr``, the same runs) or 1e-5, so
+    that the sharded sums are as accurate as the single store's."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    t0 = time.perf_counter()
+    A = sp.csr_matrix((ow.astype(np.float64), (osrc, odst)),
+                      shape=(n_vertices, n_vertices))
+    vids = ids[present]
+    out = {}
+    hops = csgraph.shortest_path(A, method="D", unweighted=True,
+                                 indices=hub)[present]
+    want = np.where(np.isfinite(hops) & (hops <= bfs_iters), hops, -1)
+    if not np.array_equal(by_vertex(res["bfs"].value, vids).astype(
+            np.int64), want.astype(np.int64)):
+        raise AssertionError("sharded bfs depths disagree with the oracle")
+    out["bfs_reached"] = int((want >= 0).sum())
+    for j, s_ in enumerate(khop_src):       # hop by hop, k = 1, 2, 3
+        seen = np.zeros(n_vertices, bool)
+        seen[s_] = True
+        front = np.array([s_])
+        for k in (1, 2, 3):
+            nb = np.unique(A[front].indices) if len(front) else front
+            front = nb[~seen[nb]]
+            seen[front] = True
+            if res[f"khop{k}"].value[j] != int(seen.sum()) - 1:
+                raise AssertionError(f"sharded khop k={k} of source {j}")
+    for k in (1, 2, 3):
+        out[f"khop{k}_max"] = int(max(res[f"khop{k}"].value))
+    dist = csgraph.dijkstra(A, directed=True, indices=hub)[present]
+    d32 = by_vertex(res["sssp"].value, vids).astype(np.float64)
+    fin = np.isfinite(dist)
+    if not np.array_equal(fin, d32 < 1e38):
+        raise AssertionError("sharded sssp reachability disagrees")
+    rel = np.abs(d32[fin] - dist[fin]) / np.maximum(dist[fin], 1e-30)
+    out["sssp_max_rel_err"] = float(rel.max()) if rel.size else 0.0
+    if out["sssp_max_rel_err"] > 1e-5:
+        raise AssertionError(f"sharded sssp relative error {rel.max()}")
+    for key, iters in (("pagerank", 20),
+                       ("pagerank_tol", res["pagerank_tol"].iters)):
+        x, _ = host_pagerank(n_vertices, present, osrc, odst, iters)
+        d = np.abs(by_vertex(res[key].value, vids) - x[present])
+        dl = np.abs(by_vertex(local_pr[key], vids) - x[present])
+        out[f"{key}_l1"] = float(d.sum())
+        out[f"{key}_max_rel_to_float64"] = rel = float(
+            (d / np.maximum(x[present], 1e-7)).max(initial=0.0))
+        out[f"{key}_local_max_rel_to_float64"] = rel_l = float(
+            (dl / np.maximum(x[present], 1e-7)).max(initial=0.0))
+        if out[f"{key}_l1"] > 1e-4 or rel > max(2 * rel_l, 1e-5):
+            raise AssertionError(f"sharded {key} against float64 {out}")
+    if res["num_edges"].value != len(osrc):
+        raise AssertionError("sharded num_edges disagrees with the oracle")
+    # WCC's labels flow along out-edges: each round every vertex takes the
+    # least label of itself and its in-neighbours (one hop, as the owners
+    # merge once a round); 64 rounds at most, as the program
+    order = np.argsort(odst, kind="stable")
+    ds, ss = odst[order], osrc[order]
+    heads = np.flatnonzero(np.r_[True, ds[1:] != ds[:-1]])
+    lab = ids.astype(np.int64)
+    rounds, changed = 0, True
+    while changed and rounds < 64:
+        pulled = np.minimum.reduceat(lab[ss], heads) if len(ss) else lab[:0]
+        new = lab.copy()
+        new[ds[heads]] = np.minimum(lab[ds[heads]], pulled)
+        changed = bool((new[present] < lab[present]).any())
+        lab, rounds = new, rounds + 1
+    if not np.array_equal(by_vertex(res["wcc"].value, vids).astype(
+            np.int64), lab[present]):
+        raise AssertionError("sharded wcc labels disagree with the oracle")
+    out.update(wcc_rounds=rounds, wcc_labels=int(np.unique(
+        lab[present]).size))
+    out["oracle_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_analytics_profile(store, torch, iters=2):
+    """Where a sharded PageRank iteration's time goes: ``iters``
+    iterations of the store's program under ``torch.profiler`` (after a
+    run that builds the route): wall ms an iteration, the device's busy
+    share, host ops an iteration, and the five kernels with the most
+    device time (ms an iteration)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dist import graph_engine as ge
+    fn = ge.make_pagerank(store.sspec, store.pspec, store.n_shards,
+                          store.m_cap, iters=iters)
+    fn(store.state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(store.state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = e.name.split("(")[0][:80]
+            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+    return dict(pagerank_profile_ms_per_program=wall * 1e3,
+                pagerank_profile_iters=iters,
+                pagerank_profile_device_busy_share=device_busy_us(prof) /
+                (wall * 1e6),
+                pagerank_profile_host_ops=sum(
+                    e.count for e in prof.key_averages()
+                    if e.key.startswith("aten::")),
+                pagerank_profile_top_kernels_ms={k: v for k, v in top})
+
+
+def phase_sharded_analytics(args, torch, sh):
+    """Distributed analytics on the sharded phase's final store (4 shards,
+    the main path's state size): every registered analytics with a
+    sharded program once through ``store.analytics_result`` (the program
+    alone timed apart: device ms against host ms), held exactly to a
+    ``LocalStore`` of the port on the card that took the same ops (PageRank
+    and BC within 1e-5 relative) and to numpy/scipy; then advances over an
+    insert-only delta of 4096 edges, each incremental and equal to a
+    scratch run (PageRank in L1 to a float64 power iteration from the same
+    seed). Launch counters are zeroed before and read after, less the
+    launches of the reference, the timings and the checks. Returns the
+    launches by kernel and each checked kernel's largest error."""
+    from repro_torch.analytics import algorithms as alg
+    from repro_torch.api import AnalyticsOp, OpBatch, ReadOp, make_store
+    from repro_torch.core import edgepool as ep
+    from repro_torch.dist import graph_engine as ge
+    from repro_torch.kernels import ops as kops, sort_lookup as ks
+    from repro_torch.kernels.frontier import pack_bits
+    t_phase = time.perf_counter()
+    card = card_line()
+    store, ids, si, di, w = (sh[k] for k in ("store", "ids", "si", "di",
+                                             "w"))
+    n = store.n_shards
+    B = store.batch
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    uncounted, excluded = launch_excluder()
+    tally = {}
+    untally = tally_shapes(ks, ("sort_lookup",), tally, arg=1)
+
+    # ---- the reference: the port's LocalStore on the card, same ops ----
+    t0 = time.perf_counter()
+    local = make_store("local", **LJ_STORE, m_cap=2 ** 23)
+
+    def feed():             # flushes of 256 batches: the same batches
+        F = 256 * B
+        for lo in range(0, len(si), F):
+            r = local.apply(OpBatch.edges(ids[si[lo:lo + F]],
+                                          ids[di[lo:lo + F]], w[lo:lo + F]))
+            if r.dropped:
+                raise AssertionError(f"reference: {r.dropped} dropped")
+    uncounted(feed)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    snaps = uncounted(lambda: store.read(ReadOp("snapshot")))
+    m_shard = snaps.m.tolist()
+    if max(m_shard) + DELTA_EDGES >= store.m_cap:
+        raise AssertionError(f"a shard's snapshot reaches m_cap {m_shard}")
+    del snaps
+    osrc, odst, ow = oracle(LJ_VERTICES, si, di, w)
+    present = np.unique(np.concatenate([si, di]))
+    rng = np.random.default_rng(args.seed + 2)
+    hub = int(np.argmax(np.bincount(osrc, minlength=LJ_VERTICES)))
+    khop_src = rng.choice(present, 16, replace=False)
+    bc_src = rng.choice(present, 8, replace=False)
+    cand = rng.integers(0, 2 ** 32, 64, dtype=np.uint64)
+    ghost = int(cand[~np.isin(cand, ids)][0])       # never in the stream
+    say("sharded_analytics_store", card=card, ops=len(si),
+        live_edges=len(osrc), vertices=len(present),
+        live_edges_per_shard=m_shard, m_cap=store.m_cap,
+        query_batch=store.query_batch, reference_ingest_s=t_ref,
+        hub_degree=int(np.bincount(osrc)[hub]))
+
+    # ---- scratch: every sharded program once through the store, at an
+    # epoch (the advances below start from these results) ----
+    e0 = store.capture()
+    ops_list = [("bfs", "bfs", dict(source=int(ids[hub]))),
+                ("sssp", "sssp", dict(source=int(ids[hub]),
+                                      max_iters=SSSP_ITERS)),
+                ("pagerank", "pagerank", dict(iters=20)),
+                ("pagerank_tol", "pagerank", dict(iters=20,
+                                                  tol=PR_ADVANCE_TOL)),
+                ("wcc", "wcc", {}),
+                ("bc", "bc", dict(sources=ids[bc_src], max_depth=16))]
+    ops_list += [(f"khop{k}", "khop", dict(sources=ids[khop_src], k=k))
+                 for k in (1, 2, 3)]
+    ops_list += [("degree_map", "degree_map", {}),
+                 ("num_edges", "num_edges", {}),
+                 ("bfs_absent", "bfs", dict(source=ghost))]
+    res, rows, local_pr = {}, [], {}
+    for key, name, params in ops_list:
+        op = AnalyticsOp(name, params)
+        s0, f0 = ep.SYNCS["host_syncs"], kops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[key] = store.analytics_result(op, e0)
+        torch.cuda.synchronize()
+        store_ms = (time.perf_counter() - t0) * 1e3
+        f1, s1 = kops.launch_counts(), ep.SYNCS["host_syncs"]
+        t0 = time.perf_counter()
+        uncounted(lambda: sharded_program(store, name, params))
+        torch.cuda.synchronize()
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        row = dict(op=key, device_ms=dev_ms, store_ms=store_ms,
+                   host_ms=store_ms - dev_ms, iters=res[key].iters,
+                   host_fetches=s1 - s0,
+                   frontier_launches=f1["frontier_expand"] -
+                   f0["frontier_expand"],
+                   sort_lookup_launches=f1["sort_lookup"] -
+                   f0["sort_lookup"])
+        rows.append(row)
+        if name == "wcc":       # held to the host oracle below
+            continue
+        t0 = time.perf_counter()
+        want = uncounted(lambda: local.analytics_result(op))
+        torch.cuda.synchronize()
+        row["local_store_ms"] = (time.perf_counter() - t0) * 1e3
+        row["local_iters"] = want.iters
+        a, b = res[key].value, want.value
+        if name in ("pagerank", "bc"):
+            row.update(float_errs(a, b))
+            if row["jax_suite_err"] > 1e-5:
+                raise AssertionError(f"sharded {key} differs from the "
+                                     f"LocalStore's: {row}")
+            if name == "pagerank":      # both held to float64 below
+                local_pr[key] = b
+        else:
+            row.update(max_abs_err=0.0)
+            same = np.array_equal(a, b) if isinstance(a, np.ndarray) \
+                else a == b
+            if not same:
+                raise AssertionError(f"sharded {key} differs from the "
+                                     "LocalStore's")
+    if set(res["bfs_absent"].value.values()) != {-1}:
+        raise AssertionError("a bfs from an absent source reached a vertex")
+    say("sharded_analytics", card=card, ops=rows, vs="LocalStore: equal; "
+        "pagerank and bc |a - b| / max(1, |b|) <= 1e-5 at every vertex (the "
+        "JAX suite's cross-backend rule; max_rel_err = |a - b| / max(|b|, "
+        "1e-7) and the vertices outside 1e-7 + 1e-5 |b| are reported); "
+        "wcc: the host oracle (on a directed graph the two backends' WCC "
+        "differ)")
+    del local
+    torch.cuda.empty_cache()
+    checks = sharded_oracle_checks(LJ_VERTICES, ids, present, osrc, odst,
+                                   ow, hub, khop_src, res, local_pr)
+    say("sharded_analytics_oracle", card=card, oracle="agrees", **checks)
+
+    # ---- the largest BFS level, as the frontier kernel saw it (e0) ----
+    depth = res["bfs"].raw
+    _, _, mine = ge._row_meta(e0.state, n)
+    mine = mine.cpu().numpy()
+    lv = int(np.argmax(np.bincount(depth[mine & (depth >= 0)])))
+    on = (depth == lv) & mine
+    s_ = int(np.argmax(on.sum(1)))
+    snap_s = ge.shard_view(uncounted(lambda: store.read(ReadOp("snapshot"),
+                                                        at=e0)), s_)
+    n_cap = depth.shape[1]
+    level = (s_, alg._frontier_view(snap_s, alg.csr_edges(snap_s)),
+             pack_bits(torch.from_numpy(on[s_]).to(store.device),
+                       (n_cap + 31) // 32), lv, int(on[s_].sum()))
+    del snap_s
+
+    # ---- advances over an insert-only delta (lighter than every base
+    # weight: no weight increase), each held to a scratch run ----
+    inc_ops = [("bfs", "bfs", dict(source=int(ids[hub]))),
+               ("sssp", "sssp", dict(source=int(ids[hub]),
+                                     max_iters=SSSP_ITERS)),
+               ("wcc", "wcc", {}),
+               ("pagerank_tol", "pagerank", dict(iters=20,
+                                                 tol=PR_ADVANCE_TOL)),
+               ("degree_map", "degree_map", {}),
+               ("num_edges", "num_edges", {})]
+    _, dsi, ddi = powerlaw_stream(rng, LJ_VERTICES, DELTA_EDGES, ids)
+    dw = rng.uniform(0.1, 0.5, DELTA_EDGES).astype(np.float32)
+    if store.apply(OpBatch.edges(ids[dsi], ids[ddi], dw)).dropped:
+        raise AssertionError("the delta dropped ops")
+    e1 = store.capture()
+    t0 = time.perf_counter()
+    deltas, reason = store._delta(e0, e1)
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    if deltas is None:
+        raise AssertionError(f"sharded delta refused: {reason}")
+    si1, di1 = np.concatenate([si, dsi]), np.concatenate([di, ddi])
+    osrc1, odst1, _ow1 = oracle(LJ_VERTICES, si1, di1,
+                                np.concatenate([w, dw]))
+    present1 = np.unique(np.concatenate([si1, di1]))
+    adv = []
+    for key, name, params in inc_ops:
+        op = AnalyticsOp(name, params)
+        s0 = ep.SYNCS["host_syncs"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ri = store.analytics_advance(op, res[key], e1)
+        torch.cuda.synchronize()
+        adv_ms = (time.perf_counter() - t0) * 1e3
+        fetches = ep.SYNCS["host_syncs"] - s0
+        t0 = time.perf_counter()
+        rs = uncounted(lambda: store.analytics_result(op, e1))
+        torch.cuda.synchronize()
+        scr_ms = (time.perf_counter() - t0) * 1e3
+        if ri.mode != "incremental":
+            raise AssertionError(f"sharded {key} advance fell back: "
+                                 f"{ri.reason}")
+        row = dict(op=key, mode=ri.mode, advance_ms=adv_ms,
+                   scratch_ms=scr_ms, advance_iters=ri.iters,
+                   scratch_iters=rs.iters, host_fetches=fetches)
+        if name == "pagerank":
+            # a warm power iteration stopped by max|dpr| < tol: held to
+            # float64 iterations from the same seed (0 for a vertex new in
+            # the window) and from uniform, as many as each run took
+            vids = ids[present1]
+            x0 = np.zeros(LJ_VERTICES)
+            prev = res[key].value
+            x0[present1] = [prev.get(int(v), 0.0) for v in vids.tolist()]
+            xa, _ = host_pagerank(LJ_VERTICES, present1, osrc1, odst1,
+                                  ri.iters, x0=x0)
+            xs, _ = host_pagerank(LJ_VERTICES, present1, osrc1, odst1,
+                                  rs.iters)
+            got_a, got_s = by_vertex(ri.value, vids), by_vertex(rs.value,
+                                                                 vids)
+            row.update(l1_to_float64=float(np.abs(got_a - xa[present1])
+                                           .sum()),
+                       scratch_l1_to_float64=float(np.abs(
+                           got_s - xs[present1]).sum()),
+                       l1_from_scratch=float(np.abs(got_a - got_s).sum()))
+            if max(row["l1_to_float64"], row["scratch_l1_to_float64"]) > \
+                    1e-4:
+                raise AssertionError(f"sharded pagerank advance L1 {row}")
+        elif ri.value != rs.value:
+            raise AssertionError(f"sharded {key} advance differs from "
+                                 "scratch")
+        adv.append(row)
+    say("sharded_analytics_advance", card=card, delta_edges=DELTA_EDGES,
+        delta_changed=sum(d.n_changed for d in deltas), extract_ms=extract_ms,
+        ops=adv)
+    untally()
+    torch.cuda.synchronize()
+    launches = {k: v - excluded[k] for k, v in kops.launch_counts().items()}
+    for k in ("frontier_expand", "sort_lookup"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "sharded analytics")
+    peak = torch.cuda.max_memory_allocated()
+    # the kernels at this phase's new shapes: sort_lookup at every key
+    # count the sharded phase did not call, the frontier kernel at the
+    # largest BFS level
+    new = {k: v for k, v in tally.items() if k not in sh["tally"]}
+    errs = sharded_kernel_checks(store, store.state, new, launches, torch,
+                                 level=level, must=("frontier_expand",
+                                                    "sort_lookup"),
+                                 line="sharded_analytics_kernel_shapes")
+    profile = uncounted(lambda: sharded_analytics_profile(store, torch))
+    say("sharded_analytics_path", card=card, launches=launches,
+        uncounted_launches=excluded, sort_lookup_keys={
+            str(k[1]): v for k, v in sorted(tally.items())},
+        peak_memory_bytes=peak,
+        seconds=round(time.perf_counter() - t_phase, 3), **profile)
+    del e0, e1, res, deltas
+    return launches, errs
+
+
 def phase_analytics(args, torch):
     """The analytics path at the LiveJournal-sized state: scratch runs of
     every registered analytics, incremental advances, and the query
@@ -2041,14 +2563,7 @@ def phase_analytics(args, torch):
     from repro_torch.kernels.frontier import pack_bits
     from repro_torch.serve import GraphQueryService
 
-    excluded = dict.fromkeys(kops.launch_counts(), 0)
-
-    def uncounted(fn):
-        before = kops.launch_counts()
-        out = fn()
-        for k, v in kops.launch_counts().items():
-            excluded[k] += v - before[k]
-        return out
+    uncounted, excluded = launch_excluder()
 
     E = args.analytics_edges
     B = 4096                # RadixGraph's default batch
@@ -2439,16 +2954,20 @@ def main(argv=None):
     replay = phase_durability(args, store, ids, sample, torch)
     del store
     torch.cuda.empty_cache()
-    sharded, sharded_err = phase_sharded(args, torch, stream)
+    sharded, sharded_err, sh = phase_sharded(args, torch, stream)
+    sa_launches, sa_err = phase_sharded_analytics(args, torch, sh)
+    del sh
     torch.cuda.empty_cache()
     level, alaunches = phase_analytics(args, torch)
     torch.cuda.empty_cache()
     kernels.append(phase_frontier_kernel(level, alaunches, torch, parent))
     del level
-    for line in kernels:    # launches of the replay and the sharded phase
+    for line in kernels:    # launches of the replay and the sharded phases
         line["replay_launches"] = replay[line["name"]]
         line["sharded_launches"] = sharded[line["name"]]
         line["sharded_max_abs_err"] = sharded_err.get(line["name"])
+        line["sharded_analytics_launches"] = sa_launches[line["name"]]
+        line["sharded_analytics_max_abs_err"] = sa_err.get(line["name"])
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)

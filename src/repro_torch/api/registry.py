@@ -1,12 +1,13 @@
 """The analytics registry: algorithm name -> how a backend runs it (port
 of ``repro.api.registry``).
 
-Each entry carries the single-CSR implementation (``analytics.
-algorithms``) and its incremental phase. A backend never dispatches on
-algorithm names: ``LocalStore`` runs ``spec.single`` on its snapshot — so
-adding an algorithm is a registration, not a rewrite. The mesh programs
-(``make_dist`` / ``make_dist_warm``) come with the port's sharded slice;
-until then every entry has ``None`` there.
+Each entry pairs the single-CSR implementation (``analytics.algorithms``,
+also each shard's local phase) with the sharded combine factory of
+``dist.graph_engine`` that stitches those phases over the shard axis, and
+carries the incremental phases. A backend never dispatches on algorithm
+names: ``LocalStore`` runs ``spec.single`` on its snapshot,
+``ShardedStore`` builds (and caches) ``spec.make_dist`` — so adding an
+algorithm, or a backend, is a registration, not a rewrite.
 
 Result kinds:
 
@@ -32,6 +33,7 @@ from .. import analytics as A
 from ..analytics import incremental as inc
 from ..core.keys import unpack_keys
 from ..core.status import Reason
+from ..dist import graph_engine as ge
 
 __all__ = ["AnalyticsSpec", "ANALYTICS", "register_analytics",
            "analytics_spec", "available_analytics"]
@@ -42,18 +44,23 @@ class AnalyticsSpec:
     """How one named algorithm runs on every backend.
 
     ``single(snap, *dyn, **static)`` answers on a single CSR snapshot, on
-    the snapshot's device. ``make_dist`` builds the mesh program (``None``
-    = no distributed form yet).
+    the snapshot's device. ``make_dist(sspec, pspec, n_shards, m_cap,
+    frontier_budget, **static)`` builds the sharded program (``None`` = no
+    distributed form; the sharded backend raises with a pointer here).
 
     ``dyn`` lists (param_name, kind) resolved per backend before the call:
-    ``'id'`` — one vertex ID -> row offset; ``'ids'`` — an ID array ->
-    offsets. ``absent`` is the per-vertex fill when a required ``'id'``
-    param names a vertex the graph has never seen.
+    ``'id'`` — one vertex ID -> row offset (single) / key (sharded);
+    ``'ids'`` — an ID array -> offsets / keys. ``absent`` is the
+    per-vertex fill when a required ``'id'`` param names a vertex the
+    graph has never seen (the sharded programs yield it naturally).
 
     ``advance(prev_raw, delta, csr_prev, csr_cur, dyn, params)`` advances
     the previous epoch's RAW per-row values over one ``EpochDelta`` on
     host ``HostCsr`` views, returning ``(raw, iters)`` or ``None`` to
-    force the scratch fallback. ``make_dist_warm`` is the mesh form.
+    force the scratch fallback. ``make_dist_warm(sspec, pspec, n_shards,
+    m_cap, budget, **static)`` builds the sharded program seeded from the
+    previous per-shard raw values (a trailing ``(n_shards, n_cap)``
+    input), returning ``(vals, per_shard_iters)``.
     ``warm_guard(flags)`` (flags = ``epoch_delta.merged_flags``) returns
     a fallback reason when the delta breaks the warm program's
     monotonicity precondition.
@@ -121,10 +128,15 @@ register_analytics(AnalyticsSpec(
     name="bfs",
     single=lambda snap, source, max_iters=32:
         A.bfs(snap, source, max_iters=max_iters),
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget, max_iters=32:
+        ge.make_bfs(sspec, pspec, n, m_cap, max_iters=max_iters,
+                    frontier_budget=budget),
     advance=lambda prev, delta, cp, cc, dyn, params:
         inc.advance_bfs(prev, delta, cc, int(dyn[0]),
                         int(params.get("max_iters", 32))),
+    make_dist_warm=lambda sspec, pspec, n, m_cap, budget, max_iters=32:
+        ge.make_bfs_warm(sspec, pspec, n, m_cap, max_iters=max_iters,
+                         frontier_budget=budget),
     warm_guard=_deletes_guard,
     dyn=(("source", "id"),), absent=-1))
 
@@ -152,18 +164,39 @@ def _pagerank_advance(prev, delta, cp, cc, dyn, params):
                                 tol=float(tol))
 
 
+def _pagerank_dist(sspec, pspec, n, m_cap, budget, iters=20, damping=0.85,
+                   tol=None, warm=False):
+    """The sharded PageRank: ``iters`` iterations, or with ``tol`` to
+    convergence under a cap of ``max(iters, 100)`` (as ``single``); the
+    warm form exists only with a tolerance (fixed-iteration ranks are
+    path-dependent), else ``None``."""
+    if warm and tol is None:
+        return None
+    return ge.make_pagerank(
+        sspec, pspec, n, m_cap,
+        iters=iters if tol is None else max(int(iters), 100),
+        damping=damping, frontier_budget=budget,
+        tol=None if tol is None else float(tol), warm=warm)
+
+
 register_analytics(AnalyticsSpec(
     name="pagerank",
     single=_pagerank_single,
-    make_dist=None,
-    advance=_pagerank_advance))
+    make_dist=_pagerank_dist,
+    advance=_pagerank_advance,
+    make_dist_warm=lambda *a, **kw: _pagerank_dist(*a, warm=True, **kw)))
 
 register_analytics(AnalyticsSpec(
     name="wcc",
     single=lambda snap, max_iters=64: A.wcc(snap, max_iters=max_iters),
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget, max_iters=64:
+        ge.make_wcc(sspec, pspec, n, m_cap, max_iters=max_iters,
+                    frontier_budget=budget),
     advance=lambda prev, delta, cp, cc, dyn, params:
         inc.advance_wcc(prev, delta, cc),
+    make_dist_warm=lambda sspec, pspec, n, m_cap, budget, max_iters=64:
+        ge.make_wcc(sspec, pspec, n, m_cap, max_iters=max_iters,
+                    frontier_budget=budget, warm=True),
     warm_guard=_deletes_guard,
     canonical_single=_wcc_canonical))
 
@@ -171,10 +204,15 @@ register_analytics(AnalyticsSpec(
     name="sssp",
     single=lambda snap, source, max_iters=64:
         A.sssp(snap, source, max_iters=max_iters),
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget, max_iters=64:
+        ge.make_sssp(sspec, pspec, n, m_cap, max_iters=max_iters,
+                     frontier_budget=budget),
     advance=lambda prev, delta, cp, cc, dyn, params:
         inc.advance_sssp(prev, delta, cc, int(dyn[0]),
                          int(params.get("max_iters", 64))),
+    make_dist_warm=lambda sspec, pspec, n, m_cap, budget, max_iters=64:
+        ge.make_sssp(sspec, pspec, n, m_cap, max_iters=max_iters,
+                     frontier_budget=budget, warm=True),
     warm_guard=lambda f: (Reason.DELETES if f["has_deletes"] else
                           Reason.WEIGHT_INCREASE
                           if f["has_weight_increase"] else None),
@@ -184,13 +222,17 @@ register_analytics(AnalyticsSpec(
     name="bc",
     single=lambda snap, sources, max_depth=32:
         A.bc(snap, sources, max_depth=max_depth),
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget, max_depth=32:
+        ge.make_bc(sspec, pspec, n, m_cap, max_depth=max_depth,
+                   frontier_budget=budget),
     dyn=(("sources", "ids"),)))
 
 register_analytics(AnalyticsSpec(
     name="khop",
     single=lambda snap, sources, k=2: A.khop(snap, sources, k=k),
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget, k=2:
+        ge.make_khop_counts(sspec, pspec, n, k=k, m_cap=m_cap,
+                            frontier_budget=budget),
     dyn=(("sources", "ids"),), result="per_query"))
 
 register_analytics(AnalyticsSpec(
@@ -202,14 +244,16 @@ register_analytics(AnalyticsSpec(
 register_analytics(AnalyticsSpec(
     name="degree_map",
     single=lambda snap: snap.indptr[1:] - snap.indptr[:-1],
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget:
+        ge.make_degree_map(sspec, pspec, n, m_cap),
     advance=lambda prev, delta, cp, cc, dyn, params:
         inc.advance_degree(prev, delta, cp, cc)))
 
 register_analytics(AnalyticsSpec(
     name="num_edges",
     single=lambda snap: snap.m,
-    make_dist=None,
+    make_dist=lambda sspec, pspec, n, m_cap, budget:
+        ge.make_num_edges(sspec, pspec, n, m_cap),
     advance=lambda prev, delta, cp, cc, dyn, params:
         inc.advance_num_edges(prev, delta),
     result="scalar"))

@@ -1,13 +1,14 @@
 """``GraphStore`` front door of the port: ``LocalStore`` over the eager
 single-shard ``RadixGraph`` and ``ShardedStore`` over the sharded engine
 ``repro_torch.dist.graph_engine`` (port of ``repro.api.store``; the sharded
-backend's ingest and reads).
+backend's ingest, reads and analytics).
 
 Epochs: ``capture()`` returns an O(1) handle to the current state and pins
 it, so the next apply copies instead of updating it in place; every read
 and analytics call accepts ``at=handle`` to answer against that version.
 Analytics run on the store's device; ``analytics_advance`` moves a cached
-result across epochs over the epoch delta on the host.
+result across epochs over the epoch delta (on the host, or through a
+sharded warm program).
 
 Durability hooks (``durable_state``, ``load_durable_state``, ``checkpoint``,
 ``restore``) serve ``repro_torch.storage``, whose checkpoints share their
@@ -40,6 +41,8 @@ from .registry import AnalyticsSpec, analytics_spec
 
 __all__ = ["GraphStore", "Epoch", "LocalStore", "ShardedStore", "make_store",
            "register_backend", "available_backends"]
+
+_M32 = 0xFFFFFFFF       # the absent-key sentinel word of a padded batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,9 +403,10 @@ class ShardedStore:
     Epochs: the engine updates the state in place, so ``capture()`` pins the
     live state and the next apply copies it first (``state_copies``), as
     does every apply with ``donate_steady_state=False``; a captured state
-    never changes. Vertex batches raise ``UnsupportedOpError``; analytics
-    raise ``NotImplementedError`` until the registry carries mesh programs
-    (``make_dist``)."""
+    never changes. Vertex batches raise ``UnsupportedOpError``; an
+    analytics op whose registry entry has no sharded program
+    (``make_dist=None``: ``triangle_count``) raises
+    ``NotImplementedError``."""
 
     backend = "sharded"
     supported_ops = frozenset(("edges",))   # vertex CRUD: LocalStore only
@@ -501,7 +505,7 @@ class ShardedStore:
             route_budget=self.route_budget))
 
     def analytics_program(self, name: str, **static) -> Callable:
-        """The registered mesh program of ``name``: raises while the
+        """The registered sharded program of ``name``: raises where the
         registry has none (``make_dist=None``), as the JAX store does."""
         spec = analytics_spec(name)
         if spec.make_dist is None:
@@ -755,13 +759,182 @@ class ShardedStore:
     def analytics(self, op: AnalyticsOp, at: Optional[Epoch] = None):
         return self.analytics_result(op, at).value
 
+    def _resolve_dyn(self, spec: AnalyticsSpec, params: dict):
+        """Pop dyn params and resolve IDs -> keys on the store's device.
+        Returns ``(dyn, query_ids)``."""
+        dyn, query_ids = [], None
+        for pname, kind in spec.dyn:
+            v = params.pop(pname)
+            if kind == "id":
+                dyn.append(self._keys(np.asarray([v], np.uint64))[0])
+            elif spec.result == "per_query":
+                query_ids = np.asarray(v, np.uint64)
+            else:
+                # replicated source sets (BC): padded to the next power of
+                # two with absent-key sentinels (hash to nothing, row -1,
+                # contribute zero), as the JAX store pads them
+                ids = np.asarray(v, np.uint64)
+                S = max(len(ids), 1)
+                buf = torch.full((1 << (S - 1).bit_length(), 2), _M32,
+                                 dtype=torch.int64, device=self.device)
+                buf[:len(ids)] = self._keys(ids)
+                dyn.append(buf)
+        return dyn, query_ids
+
     def analytics_result(self, op: AnalyticsOp, at: Optional[Epoch] = None,
                          _reason: str = "") -> AnalyticsResult:
-        """Mesh analytics: raises ``NotImplementedError`` (through
-        ``analytics_program``) while the registry has no mesh program."""
-        self.analytics_program(op.name, **dict(op.params))
-        raise NotImplementedError(
-            f"sharded analytics of {op.name!r} are not ported yet")
+        """From-scratch sharded run as an ``AnalyticsResult``; ``raw``
+        keeps the per-shard ``(n_shards, n_cap)`` values (scalar results:
+        the per-shard partials) a later ``analytics_advance`` seeds
+        from."""
+        spec = analytics_spec(op.name)
+        if op.name == "wcc" and self.key_bits > 32:
+            raise NotImplementedError(
+                "distributed WCC labels are single uint32 words (min "
+                "vertex ID): key_bits > 32 needs a two-word label loop")
+        params = dict(op.params)
+        dyn, query_ids = self._resolve_dyn(spec, params)
+        fn = self.analytics_program(op.name, **params)
+        state = self._synced(self._state(at))
+        seq = at.seq if at is not None else self._seq
+        if query_ids is not None:
+            # queries ride the shard partition in fixed ``query_batch``
+            # chunks; sentinel-padded tails answer 0 and are sliced off
+            Q = self.query_batch
+            q = len(query_ids)
+            keys = self._keys(query_ids)
+            out = np.zeros((q,), np.int32)
+            for lo in range(0, q, Q):
+                n_c = min(Q, q - lo)
+                buf = torch.full((Q, 2), _M32, dtype=torch.int64,
+                                 device=self.device)
+                buf[:n_c] = keys[lo:lo + n_c]
+                out[lo:lo + n_c] = fn(state, buf, *dyn).cpu().numpy()[:n_c]
+            return AnalyticsResult(out, seq, "scratch", 0, _reason,
+                                   None, at)
+        vals = fn(state, *dyn)
+        iters = 0
+        if isinstance(vals, tuple):         # convergence entries: (v, it)
+            vals, it = vals
+            iters = int(it.max())
+        raw = vals.cpu().numpy()
+        if spec.result == "scalar":
+            return AnalyticsResult(int(raw.sum()), seq, "scratch", iters,
+                                   _reason, raw, at)
+        value = ge.collect_owner_values(state, raw, self.n_shards)
+        return AnalyticsResult(value, seq, "scratch", iters, _reason,
+                               raw, at)
+
+    def warm_program(self, name: str, **static) -> Callable:
+        """The warm-advance sharded program (``make_dist_warm``): ``f(state,
+        *dyn, prev_raw) -> (values, iters)``, cached in the slot
+        ``analytics_advance`` uses. Raises for algorithms with no warm
+        form (or whose knobs disable it: fixed-iteration PageRank)."""
+        spec = analytics_spec(name)
+        if spec.make_dist_warm is None:
+            raise NotImplementedError(
+                f"analytics op {name!r} has no warm sharded program "
+                f"registered (repro_torch.api.registry)")
+        f = self._warm_fn(spec, static)
+        if f is None:
+            raise NotImplementedError(
+                f"analytics op {name!r} refuses a warm program for "
+                f"{static!r} (path-dependent without a tolerance)")
+        return f
+
+    def _warm_fn(self, spec: AnalyticsSpec, static: dict):
+        """The cached ``make_dist_warm`` program, or None where the
+        registry refuses one for these knobs."""
+        key = ("algw", spec.name, tuple(sorted(static.items())))
+        if key not in self._fns:
+            f = spec.make_dist_warm(self.sspec, self.pspec, self.n_shards,
+                                    self.m_cap, self.frontier_budget,
+                                    **static)
+            if f is None:
+                return None
+            self._fns[key] = f
+        return self._fns[key]
+
+    def _csrs(self, at: Epoch):
+        """Per-shard host CSR views of an epoch, cached on the handle."""
+        h = at.cache.get("hcsr")
+        if h is None:
+            snaps = self._snapshots(at.state)
+            h = at.cache["hcsr"] = [
+                ed.host_csr(ge.shard_view(snaps, s))
+                for s in range(self.n_shards)]
+        return h
+
+    def _delta(self, prev: Epoch, cur: Epoch):
+        key = ("delta", prev.seq)
+        hit = cur.cache.get(key)
+        if hit is None:     # shared across every analytic chained E->E'
+            hit = cur.cache[key] = ed.extract_delta_sharded(
+                prev.state, cur.state, self._csrs(prev), self._csrs(cur))
+        return hit
+
+    def analytics_advance(self, op: AnalyticsOp, prev: AnalyticsResult,
+                          at: Optional[Epoch]) -> AnalyticsResult:
+        """Advance ``prev`` to epoch ``at``: the warm sharded program where
+        the registry has one (``make_dist_warm``), per-shard host advances
+        otherwise (degree / num_edges: shard-local, since edges live in
+        their source's owner shard); any refusal falls back to scratch
+        with the reason."""
+        spec = analytics_spec(op.name)
+        if at is None or prev is None:
+            return self.analytics_result(op, at, _reason=Reason.NO_WARM)
+        if _stale_gen(prev.handle, at, self._restore_gen):
+            return self.analytics_result(op, at,
+                                         _reason=Reason.RESTORE_BOUNDARY)
+        if prev.epoch == at.seq:
+            return prev
+        if (spec.result == "per_query" or prev.handle is None
+                or prev.raw is None or not self.sync_incremental
+                or (spec.make_dist_warm is None and spec.advance is None)):
+            return self.analytics_result(op, at, _reason=Reason.NO_WARM)
+        deltas, reason = self._delta(prev.handle, at)
+        if deltas is None:
+            return self.analytics_result(op, at, _reason=reason)
+        flags = ed.merged_flags(deltas)
+        if flags["n_changed"] > self.max_delta_frac * \
+                max(flags["m_cur"], 1):
+            return self.analytics_result(op, at,
+                                         _reason=Reason.DELTA_TOO_LARGE)
+        if spec.warm_guard is not None:
+            why = spec.warm_guard(flags)
+            if why:
+                return self.analytics_result(op, at, _reason=why)
+        params = dict(op.params)
+        dyn, _q = self._resolve_dyn(spec, params)
+        if spec.make_dist_warm is not None:
+            fn = self._warm_fn(spec, params)
+            if fn is None:                  # e.g. fixed-iteration PageRank
+                return self.analytics_result(
+                    op, at, _reason=Reason.NO_WARM_PROGRAM)
+            vals, it = fn(at.state, *dyn,
+                          torch.from_numpy(prev.raw).to(self.device))
+            iters = int(it.max())
+            raw = vals.cpu().numpy()
+        else:
+            pcsrs, ccsrs = self._csrs(prev.handle), self._csrs(at)
+            raws, iters = [], 0
+            for s in range(self.n_shards):
+                o = spec.advance(prev.raw[s], deltas[s], pcsrs[s],
+                                 ccsrs[s], (), params)
+                if o is None:
+                    return self.analytics_result(
+                        op, at, _reason=Reason.ADVANCE_REFUSED)
+                r, its = o
+                raws.append(r)
+                iters = max(iters, int(its))
+            raw = np.asarray(raws) if spec.result == "scalar" \
+                else np.stack(raws)
+        if spec.result == "scalar":
+            return AnalyticsResult(int(np.asarray(raw).sum()), at.seq,
+                                   "incremental", iters, "", raw, at)
+        value = ge.collect_owner_values(at.state, raw, self.n_shards)
+        return AnalyticsResult(value, at.seq, "incremental", iters, "",
+                               raw, at)
 
     # ---- epoch retention (warm-chain pins) ----
     def pin_epoch(self, at: Epoch):

@@ -1,7 +1,6 @@
 """Epoch-delta extraction: the exact edge changes between two captured
-epochs of one single-shard ``GraphState`` (port of
-``repro.core.epoch_delta``; the sharded extractor waits for the sharded
-slice of the port).
+epochs of one (per-shard) ``GraphState`` (port of
+``repro.core.epoch_delta``).
 
 The paper's hybrid snapshot-log design makes the difference between two
 sealed epochs a small log suffix — this module turns that suffix into a
@@ -49,7 +48,7 @@ import torch
 from .status import Reason
 
 __all__ = ["EpochDelta", "HostCsr", "host_csr", "extract_delta",
-           "merged_flags"]
+           "extract_delta_sharded", "merged_flags"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +217,45 @@ def extract_delta(prev_state, cur_state, prev_csr: HostCsr,
         e_src=cat(es, np.int32), e_dst=cat(ed, np.int32),
         w_prev=cat(wp, np.float32), w_new=cat(wn, np.float32),
         m_prev=prev_csr.m, m_cur=cur_csr.m), Reason.OK
+
+
+def _host_state_views(state, n_shards: int):
+    """Per-shard views of the state fields extraction reads, sliced off
+    the leading shard axis without a copy. The JAX package pulls these
+    fields to the host once and slices there; the port leaves them on the
+    state's device, where ``extract_delta`` scans them and fetches only
+    each shard's flags and touched rows."""
+    from types import SimpleNamespace as NS
+    vt, pool, sort = state.vt, state.pool, state.sort
+    return [NS(pool=NS(defrags=pool.defrags[s], overflow=pool.overflow[s],
+                       clock=pool.clock[s], ts=pool.ts[s],
+                       owner=pool.owner[s]),
+               sort=NS(overflow=sort.overflow[s]),
+               vt=NS(overflow=vt.overflow[s], size=vt.size[s],
+                     cap=vt.cap[s], start_block=vt.start_block[s],
+                     deg=vt.deg[s], del_time=vt.del_time[s],
+                     num_rows=vt.num_rows[s]))
+            for s in range(n_shards)]
+
+
+def extract_delta_sharded(prev_state, cur_state, prev_csrs: List[HostCsr],
+                          cur_csrs: List[HostCsr]
+                          ) -> Tuple[Optional[List[EpochDelta]], str]:
+    """Per-shard deltas over stacked sharded states (leading shard axis).
+    Any shard refusing refuses the whole window — warm row alignment must
+    hold everywhere — with the reason prefixed by ``shard{s}:``."""
+    n_shards = len(cur_csrs)
+    pvs = _host_state_views(prev_state, n_shards)
+    cvs = _host_state_views(cur_state, n_shards)
+    out = []
+    for s in range(n_shards):
+        d, reason = extract_delta(pvs[s], cvs[s], prev_csrs[s],
+                                  cur_csrs[s])
+        if d is None:
+            # the shard index is diagnostic; the suffix is the Reason code
+            return None, f"shard{s}:{reason}"
+        out.append(d)
+    return out, Reason.OK
 
 
 def merged_flags(deltas: List[EpochDelta]) -> dict:

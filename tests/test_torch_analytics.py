@@ -220,7 +220,10 @@ def test_registry_matches_jax(stores):
     assert available_analytics() == sorted(
         ["bfs", "pagerank", "wcc", "sssp", "bc", "khop", "triangle_count",
          "degree_map", "num_edges"])
-    assert available_analytics(distributed=True) == []
+    from repro.api.registry import available_analytics as javailable
+    assert available_analytics(distributed=True) == \
+        javailable(distributed=True)
+    assert available_analytics(distributed=False) == ["triangle_count"]
     absent = 12345          # never inserted
     assert absent not in set(ids.tolist())
     for name, params in _registry_ops(ids, absent):
@@ -261,7 +264,9 @@ def test_spec_fields_match_jax():
         assert (a.advance is None) == (b.advance is None)
         assert (a.warm_guard is None) == (b.warm_guard is None)
         assert (a.canonical_single is None) == (b.canonical_single is None)
-        assert b.make_dist is None and b.make_dist_warm is None
+        assert (a.make_dist is None) == (b.make_dist is None), name
+        assert (a.make_dist_warm is None) == (b.make_dist_warm is None), \
+            name
         flags = dict(has_deletes=True, has_weight_increase=True)
         if a.warm_guard is not None:
             for f in (flags, dict(flags, has_deletes=False),

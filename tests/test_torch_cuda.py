@@ -392,6 +392,44 @@ def test_bfs_and_khop_kernel_vs_plain_on_card(cuda_device):
     assert torch.equal(ka, khop(snap, srcs, k=2, impl="ref"))
 
 
+@pytest.mark.cuda
+def test_sharded_analytics_on_card(cuda_device):
+    """A small 4-shard store on the card answers bfs, k-hop (k = 1, 2, 3)
+    and wcc as the same store on the CPU does, and the card's run went
+    through the frontier and SORT lookup kernels."""
+    from repro_torch.api import AnalyticsOp, OpBatch, make_store
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    ids = rng.choice(2 ** 32, 3000, replace=False).astype(np.uint64)
+    s = ids[rng.integers(0, 3000, 20000)]
+    d = ids[rng.integers(0, 3000, 20000)]
+    w = rng.uniform(0.5, 2.0, 20000).astype(np.float32)
+    w[rng.random(20000) < 0.1] = 0.0
+    kw = dict(n_shards=4, n_per_shard=8192, expected_n=3000,
+              pool_blocks=4096, block_size=16, dmax=512, k_max=64,
+              batch=1024, query_batch=64, m_cap=1 << 15, frontier_budget=64)
+    queries = [AnalyticsOp("bfs", {"source": int(s[0])}),
+               AnalyticsOp("wcc")]
+    queries += [AnalyticsOp("khop", {"sources": ids[:40], "k": k})
+                for k in (1, 2, 3)]
+    answers = []
+    for dev in ("cpu", cuda_device):
+        store = make_store("sharded", device=dev, **kw)
+        assert store.apply(OpBatch.edges(s, d, w)).dropped == 0
+        before = ops.launch_counts()
+        answers.append([store.analytics(op) for op in queries])
+        after = ops.launch_counts()
+    for k in ("frontier_expand", "sort_lookup"):
+        assert after[k] > before[k], k
+    cpu, card = answers
+    for op, a, b in zip(queries, cpu, card):
+        if isinstance(a, dict):
+            assert a == b, op.name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=op.name)
+    assert max(cpu[0].values()) >= 2 and cpu[4].sum() > cpu[2].sum()
+
+
 # ---- durability on the card ----
 
 DUR_KW = dict(n_max=512, expected_n=64, pool_blocks=1024, block_size=8,

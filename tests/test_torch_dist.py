@@ -331,8 +331,11 @@ def test_read_programs_match_jax(ref, port_runs):
     np.testing.assert_array_equal(got, ref["khop_degree"])
     assert got[:60].sum() > 0 and not got[60:].any()
     assert int(ref["num_edges"].sum()) == int(ref["degree_map"].sum())
+    # the frontier rounds stop at k = 3, and need the CSR pad, as in JAX
     with pytest.raises(NotImplementedError):
-        ge.make_khop_counts(sspec, pspec, 4, k=2, m_cap=M_CAP)
+        ge.make_khop_counts(sspec, pspec, 4, k=4, m_cap=M_CAP)
+    with pytest.raises(ValueError):
+        ge.make_khop_counts(sspec, pspec, 4, k=2)
 
 
 if __name__ == "__main__":

@@ -276,13 +276,14 @@ def test_service_rejects_unsupported_vertex_ops():
 
 
 def test_sharded_analytics_wait_for_the_registry():
-    """No mesh program is registered yet: analytics raise, as the JAX
-    store does for an algorithm without one."""
-    from repro_torch.api import AnalyticsOp, make_store
+    """``triangle_count`` has no sharded program registered (in either
+    package): it raises, as the JAX store does, and touches no state."""
+    from repro_torch.api import AnalyticsOp, available_analytics, make_store
     sh = make_store("sharded", device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="mesh"):
-        sh.analytics(AnalyticsOp("pagerank", {"iters": 5}))
+        sh.analytics(AnalyticsOp("triangle_count"))
     assert torch.equal(sh.state.pool.clock, torch.ones(2, dtype=torch.int32))
+    assert available_analytics(distributed=False) == ["triangle_count"]
 
 
 if __name__ == "__main__":
