@@ -98,7 +98,44 @@ Phases (any failure raises and the script exits non-zero):
    count the sharded phase did not call (the dense route's 2^25 keys a
    shard among them) and the frontier kernel at the largest BFS level
    of a shard, each against its plain version (bit-exact), timed alone;
-8. analytics path, on a second store with the same LiveJournal-sized
+8. sharded durability, on that store (the analytics' reference freed):
+   a ``DurableStore`` (group commit 32; the directory under ``build/``,
+   removed at the end; the phase fails first if the disk there holds
+   under 3 x the state): a full checkpoint, 2^18 mixed ops, a checkpoint
+   that must be a delta, 2^16 ops left in the WAL; recovery into a fresh
+   ``make_store("sharded")`` of the same spec, launch counters zeroed just
+   before (``append``, ``compact_rows`` and ``sort_lookup`` must run, no
+   rebuild may go dense); every leaf (the pool's entries on owned
+   blocks), the sync watermark, reads of 4096 IDs, ``num_edges`` and
+   ``num_vertices`` equal the live store's; both take 4 more batches and
+   stay leaf-equal. Durable updates/s, the WAL's share, each
+   checkpoint's bytes and ms by part, recovery ms by part, replay ops/s
+   and launches are printed;
+9. sharded service: a ``GraphQueryService`` with durable-ack over the
+   recovered durable store: 16 write micro-batches of 4096 ops (fewer,
+   and ``reduced`` printed, where the time so far projects past the
+   script's limit), a 4096-ID degree query every step, bfs from the hub, wcc and PageRank
+   (tol 1e-4) every 4th; at the last sealed epoch every answer equals a
+   scratch ``analytics_result`` (PageRank: |a - b| / max(1, |b|) <=
+   1e-5), a read submitted with a write answers from the previous epoch,
+   ``durable_syncs`` counts the writing steps and the WAL scans back
+   whole; ops/s, step p50 / p99 ms, incremental and scratch counts;
+10. launch modes: ``python -m repro_torch.launch.dryrun_graph --mode
+   persist`` and ``--mode serve`` at 4 shards, each a subprocess on the
+   card: exit code 0, recovery bit-exact, no dropped op; both records;
+11. baselines at LiveJournal's vertex count (4,847,571 IDs from 2^32):
+   ``HashIndex`` and ``TorchART`` (7.5 GB of tree; its insert is one
+   ``art_insert`` launch) insert every ID and look up the n IDs and n
+   absent ones, held to a host map, beside the port's SORT on the same
+   IDs; the n-ID tree's nodes, dense rows and overflow equal a host count
+   of its prefixes, and no row past them was written; ``art_insert``
+   against its plain per-key loop on a 2^14-ID prefix (every
+   ``ArtState`` tensor bit-exact, in trees of the n-ID tree's
+   capacities; the plain loop runs on the CPU, and on the card on 256
+   IDs); both indices on the card
+   against their CPU runs at 2^16 IDs with repeats (the scatter winner
+   rule); then ``benchmarks/torch_table5_sort_vs_art.py`` at scale 1;
+12. analytics path, on a second store with the same LiveJournal-sized
    state, undirected, after the first is freed: 2^21 powerlaw edges
    (``--analytics-edges``; the CSR pad ``m_cap`` holds every edge the
    phase writes), then each of the nine registered analytics
@@ -112,7 +149,7 @@ Phases (any failure raises and the script exits non-zero):
    runs made only to time or check; the frontier kernel must have run.
    Then the frontier kernel against its plain version on the largest BFS
    level's inputs (bit-exact);
-9. whole-path parity at small size: the same stream with every kernel, and
+13. whole-path parity at small size: the same stream with every kernel, and
    with every impl forced to its plain version, gives identical state,
    and bfs / khop give identical depths and counts; the same for the
    sharded engine (4 shards, route budget 64 so that the compacted route
@@ -126,8 +163,14 @@ durability replay's ``replay_launches``, the sharded phase's
 ``sharded_launches`` and the largest error of its sharded shapes
 (``sharded_max_abs_err``, null where the phase did not call it), and the
 sharded analytics' ``sharded_analytics_launches`` and
-``sharded_analytics_max_abs_err``. The last two lines are the
-``kernels`` JSON object and the ``ok`` object.
+``sharded_analytics_max_abs_err``, the sharded recovery's
+``sharded_replay_launches`` and the sharded service's
+``sharded_service_launches``; each of the five TPU kernels'
+entries has ``tpu_kernel`` true, and ``art_insert`` (a port of the JAX
+function ``_art_insert``, no TPU kernel) follows with ``tpu_kernel``
+false, its launches in the baselines phase and its times on the 2^14-ID
+prefix. The last two lines are the ``kernels`` JSON object and the
+``ok`` object.
 Nothing here imports JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -504,8 +547,8 @@ MS_IS = ("ms = kernel_ms: back-to-back wrapper calls between CUDA events; "
 
 def kernel_line(name, row, launches, loss=None):
     src, replaces = TPU_KERNELS[name]
-    line = dict(name=name, route="cuda", source=src, replaces=replaces,
-                launches=launches, match=row["match"],
+    line = dict(name=name, route="cuda", tpu_kernel=True, source=src,
+                replaces=replaces, launches=launches, match=row["match"],
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
                 kernel_ms=row["ms"], device_ms=row["device_ms"],
                 torch_kernels_ms=row["torch_kernels_ms"],
@@ -624,6 +667,12 @@ def phase_build():
              i32([2, 0]))
     max_abs_err([kf.frontier_expand(*fargs)],
                 [kf.frontier_expand_plain(*fargs)])
+    from repro_torch.baselines import TorchART
+    arts = [TorchART(n_max=64, key_bits=16, device=d) for d in (dev, "cpu")]
+    small = np.arange(48, dtype=np.uint64) * 1361 % 65536
+    for a in arts:
+        a.insert(small, np.arange(48))
+    art_states_equal(arts[0].state, arts[1].state, "art_insert (build)")
     torch.cuda.synchronize()
     say("build_check", ok=True)
     return chase_lib
@@ -1096,6 +1145,7 @@ def phase_kernels(store, ids, sample, launches, tally, final_tally,
         lines.append(kernel_line(name, rows[name], launches[name], loss))
         if name == "sort_lookup":
             lines[-1]["latency_floor_ms"] = floor
+            lines[-1]["latency_floor_layers"] = len(pools)
     return lines
 
 
@@ -2548,6 +2598,685 @@ def phase_sharded_analytics(args, torch, sh):
     return launches, errs
 
 
+# the sharded durability and service phases: the durable directory, the
+# ops through the durable store before the delta checkpoint, the ops left
+# in the WAL, the 4 batches both stores take after recovery, and the
+# service's steps (analytics every 4th)
+SHARDED_DURABLE_OPS = 1 << 18
+SHARDED_WAL_ONLY_OPS = 1 << 16
+RESUME_BATCHES = 4
+SHARDED_SERVICE_STEPS = 16
+# the script's time limit: the sharded service takes fewer steps (a
+# multiple of 4, at least 4; ``reduced`` is printed) where the time spent
+# so far projects past it less a margin: in H100 runs of this script the
+# phases after the service took 0.47-0.51 of the time before it, and a
+# service step about 4 s beside 30 s of set-up and checks
+TIME_LIMIT_S = 1200
+TIME_MARGIN_S = 40
+
+
+def phase_sharded_durability(args, torch, sh):
+    """The sharded phase's final store (4 shards, 5.4 GB of state) in a
+    ``DurableStore`` (group commit 32, the JAX defaults; the directory
+    under ``build/``, removed at the end; the phase fails first if the
+    disk there holds under 3 x the state): a full checkpoint, 2^18 mixed
+    ops, a checkpoint that must be a delta, 2^16 ops left in the WAL;
+    recovery into a fresh sharded store of the same spec, launch counters
+    zeroed just before (the replay must launch ``append``,
+    ``compact_rows`` and ``sort_lookup``; no rebuild may go dense); every
+    leaf (the pool's entries on owned blocks), the sync watermark, reads
+    of 4096 IDs, ``num_edges`` and ``num_vertices`` equal the live
+    store's; then both take 4 more batches and stay leaf-equal. Returns
+    the recovered durable store (its directory kept for the service
+    phase), the directory's root and the replay's launches by kernel."""
+    import pathlib
+    import shutil
+    from repro_torch.api import OpBatch, ReadOp, make_store
+    from repro_torch.core import edgepool as ep
+    from repro_torch.kernels import ops as kops
+    from repro_torch.storage import DurableStore, recover
+    from repro_torch.storage.checkpoint import flatten_named
+    from repro_torch.storage.crash_smoke import assert_states_equal
+    store, ids, si = sh["store"], sh["ids"], sh["si"]
+    root = pathlib.Path(ROOT) / "build" / "sharded_durability"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    state_bytes = nbytes(store.state)
+    free = shutil.disk_usage(root).free
+    if free < 3 * state_bytes:
+        raise AssertionError(
+            f"sharded durability: {free} bytes free under {root}, under 3 "
+            f"x the state ({state_bytes} bytes)")
+    B = store.batch
+    ddir = root / "store"
+    dur = DurableStore(store, ddir, group_commit=GROUP_COMMIT)
+    ckpts = []
+
+    def checkpoint(after_ops):
+        parts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man = dur.checkpoint(timings=parts)
+        ckpts.append(dict(
+            after_ops=after_ops, kind=man["kind"], why_full=man["why_full"],
+            bytes=man["bytes"], ms=(time.perf_counter() - t0) * 1e3,
+            **{f"{k}_ms": v for k, v in parts.items()},
+            touched_blocks=(man["delta"] or {}).get("n_blocks"),
+            pool_blocks=int(store.state.pool.owner.numel())))
+        return man
+
+    rng = np.random.default_rng(args.seed + 17)
+    extra = 16 * B
+    n = SHARDED_DURABLE_OPS + extra + SHARDED_WAL_ONLY_OPS + \
+        RESUME_BATCHES * B
+    _, dsi, ddi = powerlaw_stream(rng, LJ_VERTICES, n, ids)
+    dw = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    dw[rng.random(n) < 0.25] = 0.0
+    tot = dict(ops=0, s=0.0, wal_ms=0.0, records=0, bytes=0, syncs=0)
+
+    def run(lo, hi):
+        wal = dur.wal
+        r0, b0, y0 = wal.records_written, wal.bytes_written, wal.syncs
+        torch.cuda.synchronize()
+        t0, wal0 = time.perf_counter(), dur.wal_stats["wal_ms"]
+        for a in range(lo, hi, B):
+            b = min(a + B, hi)
+            res = dur.apply(OpBatch.edges(ids[dsi[a:b]], ids[ddi[a:b]],
+                                          dw[a:b]))
+            if res.dropped:
+                raise AssertionError(f"sharded durability: {res.dropped} "
+                                     "ops dropped")
+        torch.cuda.synchronize()
+        tot["s"] += time.perf_counter() - t0
+        tot["wal_ms"] += dur.wal_stats["wal_ms"] - wal0
+        tot["ops"] += hi - lo
+        tot["records"] += wal.records_written - r0
+        tot["bytes"] += wal.bytes_written - b0
+        tot["syncs"] += wal.syncs - y0
+        return hi
+
+    checkpoint(0)
+    pos = run(0, SHARDED_DURABLE_OPS)
+    man = checkpoint(pos)
+    if man["kind"] != "delta":
+        say("sharded_durability_full_again", why_full=man["why_full"])
+        pos = run(pos, pos + extra)
+        man = checkpoint(pos)
+    if not any(c["kind"] == "delta" for c in ckpts):
+        raise AssertionError(f"sharded durability: no delta: {ckpts}")
+    wal_only = dur.wal.records_written
+    pos = run(pos, pos + SHARDED_WAL_ONLY_OPS)
+    wal_only = dur.wal.records_written - wal_only
+    dur.sync()
+    dur.close()
+    say("sharded_durability", card=card_line(), free_bytes=free,
+        state_bytes=state_bytes, n_shards=store.n_shards,
+        group_commit=GROUP_COMMIT, durable_ops=tot["ops"],
+        durable_updates_per_s=tot["ops"] / tot["s"], apply_s=tot["s"],
+        wal_ms=tot["wal_ms"],
+        wal_share_of_apply=tot["wal_ms"] / (tot["s"] * 1e3),
+        wal_records=tot["records"], wal_bytes=tot["bytes"],
+        wal_syncs_group_commit=tot["syncs"], checkpoints=ckpts,
+        delta_over_full_bytes=[c["bytes"] / ckpts[0]["bytes"]
+                               for c in ckpts if c["kind"] == "delta"])
+
+    # ---- recovery into a fresh sharded store on the card ----
+    parts = {}
+    torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    s0 = dict(ep.SYNCS)
+    t0 = time.perf_counter()
+    rec, report = recover(ddir, lambda: make_store("sharded",
+                                                   **SHARDED_STORE),
+                          timings=parts, group_commit=GROUP_COMMIT)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
+    if syncs["defrag_dense"]:
+        raise AssertionError("sharded durability: a replayed rebuild went "
+                             "dense")
+    for k in ("append", "compact_rows", "sort_lookup") + (
+            ("defrag_rows",) if syncs["defrag_stream"] else ()):
+        if launches[k] <= 0:
+            raise AssertionError(f"sharded durability: the replay did not "
+                                 f"launch {k}")
+    if report["replayed"] != wal_only or report["gap_at"] is not None \
+            or str(report["wal_tail"]) != "ok" \
+            or report["checkpoint_kind"] != ckpts[-1]["kind"]:
+        raise AssertionError(f"sharded durability: recovery report "
+                             f"{report}")
+    dead = assert_states_equal(store.state, rec.state, "sharded recovered")
+    if not np.array_equal(store._synced_rows, rec._synced_rows):
+        raise AssertionError("sharded durability: sync watermark differs")
+    present = np.unique(si)
+    q = ids[np.sort(rng.choice(present, min(4096, len(present)),
+                               replace=False))]
+    t_reads = time.perf_counter()
+    for kind in ("lookup", "degree"):
+        if not np.array_equal(store.read(ReadOp(kind, ids=q)),
+                              rec.read(ReadOp(kind, ids=q))):
+            raise AssertionError(f"sharded durability: recovered {kind} "
+                                 "differs")
+    for (ia, wa), (ib, wb) in zip(store.read(ReadOp("neighbors", ids=q)),
+                                  rec.read(ReadOp("neighbors", ids=q))):
+        if not (np.array_equal(ia, ib) and np.array_equal(wa, wb)):
+            raise AssertionError("sharded durability: recovered neighbors "
+                                 "differ")
+    counts = {}
+    for kind in ("num_edges", "num_vertices"):
+        a, b = store.read(ReadOp(kind)), rec.read(ReadOp(kind))
+        if a != b:
+            raise AssertionError(f"sharded durability: {kind} {b} != {a}")
+        counts[kind] = a
+    t_reads = time.perf_counter() - t_reads
+    # a deterministic resume: both take the same batches, stay equal
+    for a in range(pos, pos + RESUME_BATCHES * B, B):
+        batch = OpBatch.edges(ids[dsi[a:a + B]], ids[ddi[a:a + B]],
+                              dw[a:a + B])
+        if store.apply(batch).dropped or rec.apply(batch).dropped:
+            raise AssertionError("sharded durability: resume dropped ops")
+    dead_resumed = assert_states_equal(store.state, rec.state,
+                                       "sharded resumed")
+    say("sharded_recovery", card=card_line(), seconds=rec_s,
+        report={k: str(v) if k == "wal_tail" else v
+                for k, v in report.items()},
+        read_ms=parts.get("read", 0.0), crc_ms=parts.get("crc", 0.0),
+        h2d_ms=parts.get("h2d", 0.0), replay_ms=parts["replay"],
+        replayed_ops=parts["replayed_ops"],
+        replayed_ops_per_s=parts["replayed_ops"] / parts["replay"] * 1e3,
+        replay_launches=launches,
+        replay_rebuilds_stream=syncs["defrag_stream"],
+        replay_rebuilds_dense=syncs["defrag_dense"],
+        state_leaves=len(flatten_named(store.state)),
+        unowned_blocks_differing=dead, reads_checked=len(q),
+        reads_s=t_reads, synced_rows=rec._synced_rows.tolist(), **counts,
+        resumed_batches=RESUME_BATCHES,
+        unowned_blocks_differing_resumed=dead_resumed,
+        equal="every leaf (the pool's entries on owned blocks), the sync "
+              "watermark, reads; after the resume too")
+    return rec, root, launches
+
+
+def service_steps(elapsed_s: float) -> int:
+    """The sharded service's steps that keep the projected script time
+    inside ``TIME_LIMIT_S`` less ``TIME_MARGIN_S`` (see above)."""
+    room = TIME_LIMIT_S - TIME_MARGIN_S - 1.5 * elapsed_s - 30
+    return int(max(4, min(SHARDED_SERVICE_STEPS, room // 4 // 4 * 4)))
+
+
+def phase_sharded_service(args, torch, sh, rec, root, elapsed_s=0.0):
+    """A ``GraphQueryService`` with durable-ack over the recovered durable
+    sharded store: 16 write micro-batches of 4096 ops (``service_steps``
+    of ``elapsed_s``, the script's time so far), a 4096-ID degree query
+    every step, bfs from the hub, wcc and PageRank (tol 1e-4)
+    every 4th step (one cold analytics run fits a step's read budget, so
+    each waits its turn). At the last sealed epoch every answer equals a
+    scratch ``analytics_result`` (PageRank: |a - b| / max(1, |b|) <=
+    1e-5); a read submitted with a write answers from the previous epoch;
+    ``durable_syncs`` counts the steps that wrote. Returns the launches by
+    kernel of the service's steps."""
+    import shutil
+    from repro_torch.api import ReadOp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve import GraphQueryService
+    from repro_torch.serve.graph_service import Query
+    from repro_torch.storage import read_wal
+    card = card_line()
+    ids, si = sh["ids"], sh["si"]
+    B = rec.batch
+    rng = np.random.default_rng(args.seed + 19)
+    hub = int(ids[np.argmax(np.bincount(si, minlength=LJ_VERTICES))])
+    present = np.unique(si)
+    qids = ids[rng.choice(present, min(4096, len(present)), replace=False)]
+    steps = service_steps(elapsed_s)
+    _, vsi, vdi = powerlaw_stream(rng, LJ_VERTICES, steps * B, ids)
+    # inserts and updates (a tombstone refuses the monotone advances)
+    vw = rng.uniform(0.5, 2.0, steps * B).astype(np.float32)
+    queries = (("bfs", dict(source=hub)), ("wcc", {}),
+               ("pagerank", dict(tol=PR_ADVANCE_TOL)))
+    svc = GraphQueryService(rec, query_batch=2 * 4096)
+    if not svc.durable_ack:
+        raise AssertionError("sharded service: durable-ack is off")
+    reasons = {}
+    advance = rec.inner.analytics_advance
+
+    def tally(op, prev, at):        # why each service answer took its path
+        r = advance(op, prev, at)
+        k = f"{op.name}:{r.mode}:{r.reason}"
+        reasons[k] = reasons.get(k, 0) + 1
+        return r
+    rec.inner.analytics_advance = tally
+    uncounted, excluded = launch_excluder()
+    kops.reset_launch_counts()
+    lat, pinned = [], 0
+    t_start = time.perf_counter()
+    for step_ in range(steps):
+        sl = slice(step_ * B, (step_ + 1) * B)
+        if not svc.submit_update(ids[vsi[sl]], ids[vdi[sl]], vw[sl]):
+            raise AssertionError("sharded service refused a write")
+        before = svc._sealed
+        td = svc.submit_query("degree", ids=qids)
+        if step_ % 4 == 3:
+            for name, params in queries:
+                svc.submit_query(name, **params)
+        t0 = time.perf_counter()
+        svc.step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if step_ < 2:       # answered in the step of its write: old epoch
+            want = uncounted(lambda: rec.read(ReadOp("degree", ids=qids),
+                                              at=before))
+            if not np.array_equal(svc.results[td], want):
+                raise AssertionError("sharded service: a read saw the "
+                                     "write of its own step")
+            pinned += 1
+    wall = time.perf_counter() - t_start
+    while svc._reads:                   # deferred reads: no more writes
+        svc.step()
+    if svc.pending_writes:
+        raise AssertionError("sharded service left writes queued")
+    sealed = svc._sealed
+    tickets = [(svc.submit_query(name, **params), name, params)
+               for name, params in queries]
+    td = svc.submit_query("degree", ids=qids)
+    svc.run()
+    stats = svc.stats
+    torch.cuda.synchronize()
+    launches = {k: v - excluded[k] for k, v in kops.launch_counts().items()}
+    checks = {}
+    for t, name, params in tickets:
+        op = svc._build_op(Query(ticket=-1, kind=name, params=params))
+        want = uncounted(lambda: rec.analytics_result(op, sealed)).value
+        got = svc.results[t]
+        if name == "pagerank":
+            vids = np.fromiter(want.keys(), np.uint64, len(want))
+            a, b = by_vertex(got, vids), by_vertex(want, vids)
+            rel = float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+            checks[name] = dict(max_rel=rel, l1=float(np.abs(a - b).sum()),
+                                vertices=len(vids))
+            if set(got) != set(want) or rel > 1e-5:
+                raise AssertionError(f"sharded service pagerank {rel}")
+        else:
+            checks[name] = dict(vertices=len(want))
+            if got != want:
+                raise AssertionError(f"sharded service {name} differs from "
+                                     "scratch at its last sealed epoch")
+    if not np.array_equal(svc.results[td], uncounted(lambda: rec.read(
+            ReadOp("degree", ids=qids), at=sealed))):
+        raise AssertionError("sharded service degrees differ at the sealed "
+                             "epoch")
+    if stats["durable_syncs"] != steps:
+        raise AssertionError(f"sharded service: {stats['durable_syncs']} "
+                             f"durable syncs for {steps} writing steps")
+    scan = read_wal(rec.wal.path)
+    if str(scan.tail) != "ok" or len(scan.records) != steps + \
+            RESUME_BATCHES:
+        raise AssertionError(f"sharded service: the WAL scans back "
+                             f"{len(scan.records)} records, tail "
+                             f"{scan.tail}")
+    if not stats["analytics_incremental"]:
+        raise AssertionError("sharded service: no answer advanced")
+    for k in ("append", "compact_rows", "sort_lookup", "frontier_expand"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sharded service: kernel {k} was not "
+                                 "launched")
+    if steps < SHARDED_SERVICE_STEPS:
+        say("reduced", sharded_service_steps=steps)
+    say("sharded_service", card=card, steps=steps, write_ops=steps * B,
+        ops_per_s=steps * B / wall, wall_s=wall,
+        step_p50_ms=float(np.percentile(lat, 50)),
+        step_p99_ms=float(np.percentile(lat, 99)),
+        analytics_incremental=stats["analytics_incremental"],
+        analytics_scratch=stats["analytics_scratch"],
+        durable_syncs=stats["durable_syncs"],
+        epochs_sealed=stats["epochs_sealed"],
+        retained_epochs=stats["retained_epochs"],
+        wal_records_scanned=len(scan.records), pinned_reads_checked=pinned,
+        paths=reasons,
+        launches=launches, uncounted_launches=excluded, checks=checks,
+        answers="equal scratch at the last sealed epoch")
+    rec.close()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_launch_modes(torch):
+    """``python -m repro_torch.launch.dryrun_graph --mode persist`` and
+    ``--mode serve`` at 4 shards (their other sizes the defaults), two
+    subprocesses on the card side by side (each mostly its own start-up
+    and host work): exit code 0, ``recovery_bit_exact`` true, the serve
+    record's ``ops_dropped`` 0; both records printed."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] +
+        ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    paths, procs, recs = {}, {}, {}
+    for mode in ("persist", "serve"):
+        paths[mode] = os.path.join(ROOT, "benchmarks", "results", "dryrun",
+                                   f"torch-radixgraph-{mode}__4shards.json")
+        if os.path.exists(paths[mode]):
+            os.remove(paths[mode])
+    t0 = time.perf_counter()
+    try:
+        for mode in paths:
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun_graph",
+                 "--mode", mode, "--shards", "4", "--device",
+                 LJ_STORE["device"]], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"dryrun_graph --mode {mode} failed (rc "
+                    f"{proc.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+            with open(paths[mode]) as f:
+                recs[mode] = json.load(f)
+            recs[mode]["subprocess_s"] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if recs["persist"]["recovery_bit_exact"] is not True:
+        raise AssertionError("persist: recovery not bit-exact")
+    if recs["serve"]["ops_dropped"] != 0:
+        raise AssertionError("serve: ops dropped")
+    for rec in recs.values():
+        if rec["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"launch mode ran on {rec['device']}")
+    say("launch_modes", card=card_line(), persist=recs["persist"],
+        serve=recs["serve"])
+
+
+ART_PREFIX = 1 << 14        # art_insert against its plain loop
+ART_PLAIN_ON_CARD = 256     # the plain loop on the card: a few keys only
+STATE_CHECK_KEYS = 1 << 16  # card vs CPU runs of both indices
+
+
+ART_TIMING_REPS = 10        # profiled art_insert calls, each on a fresh tree
+
+
+def art_states_equal(a, b, where) -> float:
+    """Raise unless two ``ArtState``s are equal tensor for tensor (each of
+    ``b``'s moved to ``a``'s device in turn, so a 7.5 GB tree needs one
+    tensor's room more); returns the largest difference (0.0)."""
+    import torch
+    for k, (x, y) in enumerate(zip(leaves(a), leaves(b))):
+        y = y.to(x.device)
+        if x.shape != y.shape:
+            raise AssertionError(f"{where}: tensor {k}: shape "
+                                 f"{tuple(x.shape)} != {tuple(y.shape)}")
+        if not torch.equal(x, y):
+            err = float((x.long() - y.long()).abs().max())
+            raise AssertionError(f"{where}: tensor {k} differs (max abs "
+                                 f"err {err})")
+    return 0.0
+
+
+def art_touched_bytes(st) -> int:
+    """The bytes of an ``ArtState`` a walk that built it from a fresh tree
+    touched: per layer its ``scount`` sparse rows (keys, children, dense
+    row) and ``dcount`` dense rows, each read once and written once, and
+    the counters."""
+    sc, dc = int(st.scount.sum()), int(st.dcount.sum())
+    rows = sc * (2 * 16 * 4 + 4) + dc * 256 * 4
+    return 2 * (rows + nbytes((st.scount, st.dcount, st.overflow)))
+
+
+def art_tree_checks(st, ids, key_bits):
+    """The tree of ``TorchART.insert(ids)`` against a host count of its
+    prefixes: a layer's nodes are the distinct prefixes of that many bytes
+    (the root at layer 0), its dense rows the nodes with more than 16
+    distinct children; no overflow where these fit the capacities. Every
+    row past a layer's counts must still hold -1 (no write went astray).
+    Returns the host counts."""
+    L = len(st.skeys)
+    nodes, dense = [], []
+    for i in range(L):
+        kids = np.unique(ids >> np.uint64(key_bits - 8 * (i + 1)))
+        _, fan = np.unique(kids >> np.uint64(8), return_counts=True)
+        nodes.append(len(fan))
+        dense.append(int((fan > 16).sum()))
+        if nodes[i] > st.skeys[i].shape[0] or \
+                dense[i] > st.dchild[i].shape[0]:
+            raise AssertionError(f"art: layer {i} needs {nodes[i]} nodes "
+                                 f"and {dense[i]} dense rows: past the "
+                                 "tree's capacity")
+    got = (st.scount.tolist(), st.dcount.tolist(), int(st.overflow))
+    if got != (nodes, dense, 0):
+        raise AssertionError(f"art: (nodes, dense rows, overflow) {got}, "
+                             f"the host count {(nodes, dense, 0)}")
+    for i in range(L):
+        s, d = nodes[i], dense[i]
+        for name, rest in (("skeys", st.skeys[i][s:]),
+                           ("schild", st.schild[i][s:]),
+                           ("dense_of", st.dense_of[i][s:]),
+                           ("dchild", st.dchild[i][d:])):
+            if rest.numel() and bool((rest != -1).any()):
+                raise AssertionError(f"art: {name}[{i}] was written past "
+                                     "its layer's count")
+    return dict(nodes=nodes, dense_rows=dense)
+
+
+def phase_baselines(args, torch, floor_per_load_ms):
+    """The paper's vertex-index baselines on the card at LiveJournal's
+    vertex count (IDs from 2^32 with ``--seed``): ``HashIndex`` and
+    ``TorchART`` take every ID (offsets 0 .. n-1), then look up the n IDs
+    and n absent ones, held to a host map (absent: -1); launch counters
+    zeroed just before; the ART's counts against a host count of its
+    prefixes (``art_tree_checks``). ``art_insert`` against its plain
+    per-key loop (CPU) on a prefix of 2^14 IDs in trees of the same
+    capacities, and on the card on 256; both indices
+    on the card against their CPU runs at 2^16 IDs with repeats (the
+    scatter winner rule); then ``benchmarks/torch_table5_sort_vs_art.py``
+    at scale 1 and the port's SORT at n. Returns the ``kernels`` line
+    entry of ``art_insert``."""
+    sys.path.insert(0, ROOT)
+    from benchmarks import torch_table5_sort_vs_art as t5
+    from repro_torch.baselines import HashIndex, TorchART
+    from repro_torch.kernels import art as kart, ops as kops
+    card = card_line()
+    dev = torch.device(LJ_STORE["device"])
+    n = LJ_VERTICES
+    rng = np.random.default_rng(args.seed + 23)
+    ids = rng.choice(2 ** 32, n, replace=False).astype(np.uint64)
+    cand = rng.integers(0, 2 ** 32, 2 * n, dtype=np.uint64)
+    absent = cand[~np.isin(cand, ids)][:n]
+    offs = np.arange(n, dtype=np.int32)
+    layers, cap_s, cap_d = 4, n + 2, max(64, int(n * 0.25))
+    art_bytes = layers * (cap_s * (16 * 4 * 2 + 4) + cap_d * 256 * 4) + 36
+    cap = 1 << (2 * n - 1).bit_length()
+    say("baselines_sizes", card=card, n=n, art_state_bytes=art_bytes,
+        art_sparse_rows=cap_s, art_dense_rows=cap_d,
+        hash_table_slots=cap, hash_state_bytes=cap * (8 + 8 + 4) + 8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    rows = {}
+    for name, make in (("hash", lambda: HashIndex(n_max=n, device=dev)),
+                       ("art", lambda: TorchART(n_max=n, device=dev))):
+        index = make()
+        if name == "art":       # the kernel alone, then the whole call
+            radix, prep_ms = timed(lambda: index._radix(ids))
+            off_t = torch.from_numpy(offs).to(dev)
+            _, kernel_ms = timed(lambda: kart.art_insert(index.state, radix,
+                                                         off_t))
+            ins_ms = prep_ms + kernel_ms
+            del radix, off_t
+        else:
+            _, ins_ms = timed(lambda: index.insert(ids, offs))
+        got, q_ms = timed(lambda: index.lookup(np.concatenate([ids,
+                                                               absent])))
+        if not np.array_equal(got[:n], offs):
+            bad = int((got[:n] != offs).sum())
+            raise AssertionError(f"{name}: {bad} offsets differ from the "
+                                 "host map")
+        if not (got[n:] == -1).all():
+            raise AssertionError(f"{name}: an absent ID was found")
+        rows[name] = dict(insert_ms=ins_ms, insert_ops_per_s=n / ins_ms *
+                          1e3, lookup_ms=q_ms, lookup_ops_per_s=2 * n /
+                          q_ms * 1e3, memory_bytes=index.memory_bytes())
+        if name == "art":
+            counts = art_tree_checks(index.state, ids, index.key_bits)
+            path_bytes = art_touched_bytes(index.state) + \
+                4 * n * (index.layers + 1)
+            rows[name].update(
+                kernel_ms=kernel_ms, key_prep_ms=prep_ms,
+                state_bytes=nbytes(index.state),
+                overflow=int(index.state.overflow),
+                touched_bytes=path_bytes,
+                host_count="nodes, dense rows and overflow equal; rows past "
+                           "them untouched", **counts)
+        else:
+            rows[name].update(overflow=int(index.state.overflow),
+                              used=int(index.state.used))
+        del index
+        torch.cuda.empty_cache()
+    launches = kops.launch_counts()
+    if launches["art_insert"] <= 0:
+        raise AssertionError("art_insert was not launched")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the port's SORT at the same n: one batch insert, the same lookups
+    from repro_torch.core import sort as sort_mod
+    from repro_torch.core.keys import pack_keys
+    from repro_torch.core.sort import SortSpec
+    from repro_torch.core.sort_optimizer import optimize_sort
+    spec = SortSpec.from_config(optimize_sort(n, 32, 5), n + 8)
+    keys = pack_keys(ids, 32, dev)
+    qkeys = pack_keys(np.concatenate([ids, absent]), 32, dev)
+    st = sort_mod.make_sort(spec, dev)
+    st, s_ins = timed(lambda: sort_mod.insert_mappings(
+        spec, st, keys, torch.arange(n, dtype=torch.int32, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev)))
+    got, s_q = timed(lambda: sort_mod.lookup(spec, st, qkeys))
+    got = got.cpu().numpy()
+    if not (np.array_equal(got[:n], offs) and (got[n:] == -1).all()):
+        raise AssertionError("SORT at n disagrees with the host map")
+    rows["sort"] = dict(insert_ms=s_ins, insert_ops_per_s=n / s_ins * 1e3,
+                        lookup_ms=s_q, lookup_ops_per_s=2 * n / s_q * 1e3,
+                        memory_bytes=int(sort_mod.materialized_slots(
+                            spec, st)) * 4)
+    del st, keys, qkeys
+    say("baselines", card=card, n=n, absent=len(absent), oracle="agrees",
+        launches=launches, peak_memory_bytes=peak, **rows)
+
+    # ---- art_insert against its plain loop, on the same inputs, in
+    # trees of the main path's capacities ----
+    pre = ids[:ART_PREFIX]
+    card_art = TorchART(n_max=n, device=dev)
+    radix = card_art._radix(pre)
+    off_t = torch.arange(ART_PREFIX, dtype=torch.int32, device=dev)
+    _, k_ms = timed(lambda: kart.art_insert(card_art.state, radix, off_t))
+    host_art = TorchART(n_max=n, device="cpu")
+    t0 = time.perf_counter()
+    kart.art_insert_plain(host_art.state, radix.cpu(), off_t.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = art_states_equal(card_art.state, host_art.state, "art_insert")
+    moved = art_touched_bytes(card_art.state) + radix.numel() * 4 + \
+        off_t.numel() * 4
+    del card_art, host_art
+    torch.cuda.empty_cache()
+    few = TorchART(n_max=ART_PREFIX + 8, device=dev)
+    few_k = TorchART(n_max=ART_PREFIX + 8, device=dev)
+    _, plain_card_ms = timed(lambda: kart.art_insert_plain(
+        few.state, radix[:ART_PLAIN_ON_CARD], off_t[:ART_PLAIN_ON_CARD]))
+    kart.art_insert(few_k.state, radix[:ART_PLAIN_ON_CARD],
+                    off_t[:ART_PLAIN_ON_CARD])
+    art_states_equal(few.state, few_k.state, "art_insert (plain on card)")
+    del few, few_k
+    # times: each call on a fresh tree (its time does not depend on the
+    # rows it does not touch, so a small one): CUDA events around one call
+    # (median of 6), and the kernel's own time from profiler events
+
+    def fresh_call():
+        return kart.art_insert(TorchART(n_max=ART_PREFIX + 8,
+                                        device=dev).state, radix, off_t)
+    ms = float(np.median([timed(fresh_call)[1] for _ in range(6)]))
+    prof = device_ms(fresh_call, lambda: kops.launch_counts()["art_insert"],
+                     reps=ART_TIMING_REPS)
+    # the bound: the bytes the walk touched (keys, offsets, and the rows
+    # it created or read, once read and once written) over the memory
+    # rate; the chain estimate: one dependent load a layer a key at the
+    # sort_lookup floor per load
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    chain = ART_PREFIX * layers * floor_per_load_ms
+    path_ms = rows["art"]["kernel_ms"]
+    art_line = dict(
+        name="art_insert", route="cuda", tpu_kernel=False,
+        source="src/repro_torch/kernels/csrc/art.cu",
+        replaces="src/repro/baselines/art.py:136 (_art_insert, a lax.scan; "
+                 "no TPU kernel)",
+        launches=launches["art_insert"], match=True, max_abs_err=err,
+        ms=ms, kernel_ms=ms, device_ms=prof["device_ms"],
+        profiler_events_kept=prof["profiler_events_kept"],
+        torch_kernels_ms=prof["torch_kernels_ms"], first_call_ms=k_ms,
+        plain_ms=plain_ms, plain_device="cpu",
+        plain_on_card_ms_per_key=plain_card_ms / ART_PLAIN_ON_CARD,
+        bound_ms=bound, bound_by="bytes", bytes=moved,
+        chain_ms=chain,
+        chain_is="keys x 4 layers x the sort_lookup latency floor per "
+                 "dependent load (upper layers hit in cache: not a floor)",
+        library_ms=None, shape=[ART_PREFIX, layers],
+        compared_in_tree_n_max=n, timed_in_tree_n_max=ART_PREFIX + 8,
+        ms_per_key=ms / ART_PREFIX,
+        device_ms_per_key=prof["device_ms"] / ART_PREFIX, path_keys=n,
+        path_ms=path_ms, path_ms_per_key=path_ms / n,
+        path_bound_ms=rows["art"]["touched_bytes"] / HBM_BYTES_PER_S * 1e3,
+        path_chain_ms=n * layers * floor_per_load_ms,
+        ms_is="ms: CUDA events around one launch on a fresh tree (median "
+              "of 6); device_ms: the kernel's profiler events, "
+              f"{ART_TIMING_REPS} calls on fresh trees; plain_ms: the "
+              "plain per-key loop on the CPU, same inputs, in a tree of "
+              "the main path's capacities")
+    say("art_insert_kernel", card=card, **art_line)
+
+    # ---- card against CPU at 2^16 IDs: the winner rule on CUDA ----
+    sub = ids[:STATE_CHECK_KEYS]
+    rep = np.concatenate([sub, rng.choice(sub[:1024], 8192)])
+    perm = rng.permutation(len(rep))
+    rep, roff = rep[perm], np.arange(len(rep), dtype=np.int32)[perm]
+    pair = [HashIndex(n_max=STATE_CHECK_KEYS, device=d)
+            for d in (dev, "cpu")]
+    for h in pair:
+        h.insert(rep, roff)
+    for f in ("khi", "klo", "val", "used", "overflow"):
+        if not torch.equal(getattr(pair[0].state, f).cpu(),
+                           getattr(pair[1].state, f)):
+            raise AssertionError(f"HashIndex on the card: {f} differs")
+    arts = [TorchART(n_max=STATE_CHECK_KEYS + 8, device=d)
+            for d in (dev, "cpu")]
+    for a in arts:
+        a.insert(sub, np.arange(len(sub), dtype=np.int32))
+    art_states_equal(arts[0].state, arts[1].state, "TorchART card vs CPU")
+    del pair, arts
+    say("baselines_state_checks", card=card, keys=STATE_CHECK_KEYS,
+        hash_batch=len(rep), repeated=8192, equal="every state tensor")
+
+    # ---- paper Table 5 on the port, at scale 1 ----
+    t0 = time.perf_counter()
+    table = t5.run(scale=1.0, device=dev, seed=args.seed)
+    say("table5", card=card, header=list(table[0]),
+        rows=[list(r) for r in table[1:]], lj_n=n,
+        lj_rows={k: rows[k] for k in ("sort", "art", "hash")},
+        seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return art_line
+
+
 def phase_analytics(args, torch):
     """The analytics path at the LiveJournal-sized state: scratch runs of
     every registered analytics, incremental advances, and the query
@@ -2902,7 +3631,8 @@ def phase_parity(torch):
         if not torch.equal(a, b):
             raise AssertionError("bfs / khop through the frontier kernel "
                                  "and its plain version differ")
-    if min(counts[0].values()) <= 0 or max(counts[1].values()) != 0:
+    if min(counts[0][k] for k in TPU_KERNELS) <= 0 or \
+            max(counts[1].values()) != 0:
         raise AssertionError(f"launch counts {counts}")
     sharded_parity(torch)
     say("parity", identical=True, leaves=len(la),
@@ -2913,6 +3643,7 @@ def phase_parity(torch):
 
 
 def main(argv=None):
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ingest-ops", type=int, default=1 << 22)
@@ -2956,8 +3687,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     sharded, sharded_err, sh = phase_sharded(args, torch, stream)
     sa_launches, sa_err = phase_sharded_analytics(args, torch, sh)
-    del sh
+    torch.cuda.empty_cache()        # the analytics' reference is freed
+    rec, rec_root, sd_replay = phase_sharded_durability(args, torch, sh)
+    sv_launches = phase_sharded_service(args, torch, sh, rec, rec_root,
+                                        time.perf_counter() - t_start)
+    del sh, rec
     torch.cuda.empty_cache()
+    phase_launch_modes(torch)
+    sl = next(k for k in kernels if k["name"] == "sort_lookup")
+    art_line = phase_baselines(
+        args, torch, sl["latency_floor_ms"] / sl["latency_floor_layers"])
     level, alaunches = phase_analytics(args, torch)
     torch.cuda.empty_cache()
     kernels.append(phase_frontier_kernel(level, alaunches, torch, parent))
@@ -2968,6 +3707,9 @@ def main(argv=None):
         line["sharded_max_abs_err"] = sharded_err.get(line["name"])
         line["sharded_analytics_launches"] = sa_launches[line["name"]]
         line["sharded_analytics_max_abs_err"] = sa_err.get(line["name"])
+        line["sharded_replay_launches"] = sd_replay[line["name"]]
+        line["sharded_service_launches"] = sv_launches[line["name"]]
+    kernels.append(art_line)
     phase_parity(torch)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)

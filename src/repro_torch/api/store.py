@@ -78,7 +78,24 @@ def _stale_gen(prev_handle: Optional[Epoch], at: Optional[Epoch],
                for ep in (prev_handle, at))
 
 
-class LocalStore:
+class _CheckpointHooks:
+    """``checkpoint`` / ``restore`` of a store with ``durable_state`` and
+    ``load_durable_state``: both forward to ``repro_torch.storage``."""
+
+    def checkpoint(self, directory, **kw):
+        """Write an epoch-consistent checkpoint of the live state (full or
+        incremental — see ``repro_torch.storage.checkpoint``)."""
+        from ..storage.checkpoint import save_graph_checkpoint
+        return save_graph_checkpoint(directory, self, **kw)
+
+    def restore(self, directory, ckpt_id: Optional[int] = None):
+        """Restore the live state from the latest (or given) valid
+        checkpoint chain under ``directory``."""
+        from ..storage.checkpoint import restore_graph_checkpoint
+        return restore_graph_checkpoint(directory, self, ckpt_id)
+
+
+class LocalStore(_CheckpointHooks):
     """Single-shard backend: the eager ``RadixGraph`` behind the IR.
 
     Constructor kwargs are ``RadixGraph``'s (``device`` included, default
@@ -371,20 +388,9 @@ class LocalStore:
         self.stats["ops_dropped"] = int(meta.get("ops_dropped", 0))
         self._restore_gen += 1
 
-    def checkpoint(self, directory, **kw):
-        """Write an epoch-consistent checkpoint of the live state (full or
-        incremental — see ``repro_torch.storage.checkpoint``)."""
-        from ..storage.checkpoint import save_graph_checkpoint
-        return save_graph_checkpoint(directory, self, **kw)
-
-    def restore(self, directory, ckpt_id: Optional[int] = None):
-        """Restore the live state from the latest (or given) valid
-        checkpoint chain under ``directory``."""
-        from ..storage.checkpoint import restore_graph_checkpoint
-        return restore_graph_checkpoint(directory, self, ckpt_id)
 
 
-class ShardedStore:
+class ShardedStore(_CheckpointHooks):
     """Sharded backend: vertex-space sharding over ``dist.graph_engine``,
     every shard on one device, stacked on a leading shard axis.
 
@@ -403,7 +409,12 @@ class ShardedStore:
     Epochs: the engine updates the state in place, so ``capture()`` pins the
     live state and the next apply copies it first (``state_copies``), as
     does every apply with ``donate_steady_state=False``; a captured state
-    never changes. Vertex batches raise ``UnsupportedOpError``; an
+    never changes. Durability hooks (``durable_state``,
+    ``load_durable_state``, ``checkpoint``, ``restore``) serve
+    ``repro_torch.storage`` as ``LocalStore``'s do: a checkpoint keeps the
+    shard axis of every leaf, in the JAX package's format, and a restored
+    state is pinned like a captured one. Vertex batches raise
+    ``UnsupportedOpError``; an
     analytics op whose registry entry has no sharded program
     (``make_dist=None``: ``triangle_count``) raises
     ``NotImplementedError``."""
@@ -629,6 +640,43 @@ class ShardedStore:
     def clock(self, at: Optional[Epoch] = None) -> int:
         state = at.state if at is not None else self.state
         return int(state.pool.clock[0]) - 1
+
+    # ---- durability hooks (repro_torch.storage) ----
+    def durable_state(self):
+        """The live shard-stacked state plus the host counters a restored
+        process resumes ingest with: capture seq, the defrag watermark,
+        the incremental-sync watermark (one row count a shard) and the op
+        accounting. The state is the live one: it stays valid until the
+        next apply."""
+        return self.state, dict(
+            seq=self._seq, seen_defrags=self._seen_defrags,
+            synced_rows=np.asarray(self._synced_rows).tolist(),
+            ops_applied=self.stats["ops_applied"],
+            ops_dropped=self.stats["ops_dropped"])
+
+    def load_durable_state(self, state, meta: dict):
+        """Install a shard-stacked state (of tensors, or of numpy arrays in
+        the JAX package's dtypes, as a checkpoint holds) as the live image
+        on the store's device, and resume the host counters from ``meta``.
+        The store pins it, so the next apply copies it; epoch handles
+        captured before this call are refused by ``analytics_advance``
+        (``Reason.RESTORE_BOUNDARY``)."""
+        self._live_state = state_from_numpy(state, self.device)
+        self._pinned = self._live_state
+        self._snap_cache = self._host_cache = self._full_sync_cache = None
+        if "synced_rows" in meta:
+            self._synced_rows = np.asarray(meta["synced_rows"], np.int32)
+        else:
+            self._synced_rows = np.asarray(
+                ep._fetch(self.state.vt.num_rows), np.int32)
+        self._seq = int(meta.get("seq", 0))
+        self._seen_defrags = int(meta["seen_defrags"]) \
+            if "seen_defrags" in meta \
+            else ep._fetch(self.state.pool.defrags.sum())[0]
+        self.stats["ops_applied"] = int(meta.get("ops_applied", 0))
+        self.stats["ops_dropped"] = int(meta.get("ops_dropped", 0))
+        self.stats["defrags"] = self._seen_defrags
+        self._restore_gen += 1
 
     def _state(self, at: Optional[Epoch]):
         return at.state if at is not None else self.state

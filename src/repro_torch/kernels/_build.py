@@ -33,13 +33,14 @@ __all__ = ["SOURCES", "LAUNCHES", "CALLS", "HOST_NS", "build_dir", "build",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = {"append": "append.cu", "compact": "compact.cu",
-           "sort_lookup": "sort_lookup.cu", "frontier": "frontier.cu"}
+           "sort_lookup": "sort_lookup.cu", "frontier": "frontier.cu",
+           "art": "art.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"append": 0, "compact_rows": 0,
                             "defrag_rows": 0, "sort_lookup": 0,
-                            "frontier_expand": 0}
+                            "frontier_expand": 0, "art_insert": 0}
 CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 HOST_NS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 

@@ -80,7 +80,8 @@ def assert_states_equal(a, b, where: str) -> int:
                                  f"{tuple(x.shape)} vs {y.dtype} "
                                  f"{tuple(y.shape)}")
         if name in _BIG:
-            diff = (x != y).reshape(x.shape[0], -1).any(1)
+            # one flag a block, on the shard axis too: (S, n_blocks)
+            diff = (x != y).reshape(*own.shape, -1).any(-1)
             if bool((diff & own).any()):
                 raise AssertionError(f"{where}: state leaf {name} differs "
                                      "in an owned block")

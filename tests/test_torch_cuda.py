@@ -501,3 +501,84 @@ def test_recover_on_card_from_cpu_directory(cuda_device, tmp_path):
     assert rg == rc and rg["replayed"] == 2
     assert ops.launch_counts()["append"] > before
     _leaves_equal(cpu.graph.state, card.graph.state)
+
+
+# ---- the vertex-index baselines on the card ----
+
+def _art_ids(case, rng):
+    """(key_bits, n_max, dense_frac, ids): random 32-bit IDs; IDs under 40
+    16-bit prefixes (nodes metamorphose to dense); more 24-bit IDs than the
+    tree's node and dense-row capacity (both overflow)."""
+    if case == "random32":
+        return 32, 4100, 0.25, rng.choice(2 ** 32, 4000, replace=False)
+    if case == "clustered":
+        pre = rng.choice(2 ** 16, 40, replace=False).astype(np.uint64)
+        ids = (pre[rng.integers(0, 40, 4000)] << np.uint64(16)) | \
+            rng.integers(0, 2 ** 16, 4000).astype(np.uint64)
+        ids = np.unique(ids)
+        return 32, len(ids) + 8, 0.25, ids
+    return 24, 6000, 0.001, rng.choice(2 ** 24, 20000, replace=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random32", "clustered", "overflow"])
+def test_art_insert_kernel_on_card(cuda_device, case):
+    """``art_insert`` (one launch a batch) against its plain per-key loop
+    on the CPU, from the same state: every ``ArtState`` tensor
+    bit-exact after each of two batches, and equal lookups."""
+    from repro_torch.baselines import TorchART
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    bits, n_max, frac, ids = _art_ids(case, rng)
+    ids = np.asarray(ids, np.uint64)
+    card = TorchART(n_max=n_max, key_bits=bits, dense_frac=frac,
+                    device=cuda_device)
+    host = TorchART(n_max=n_max, key_bits=bits, dense_frac=frac,
+                    device="cpu")
+    half = len(ids) // 2
+    for lo, hi in ((0, half), (half // 2, len(ids))):
+        off = np.arange(lo, hi, dtype=np.int32)
+        before = ops.launch_counts()["art_insert"]
+        card.insert(ids[lo:hi], off)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["art_insert"] == before + 1
+        host.insert(ids[lo:hi], off)
+        for name in ("skeys", "schild", "dense_of", "dchild"):
+            for i, (a, b) in enumerate(zip(getattr(card.state, name),
+                                           getattr(host.state, name))):
+                assert torch.equal(a.cpu(), b), (case, name, i)
+        for name in ("scount", "dcount", "overflow"):
+            assert torch.equal(getattr(card.state, name).cpu(),
+                               getattr(host.state, name)), (case, name)
+    if case == "overflow":
+        assert int(host.state.overflow) > 0
+        assert host.state.dcount.tolist()[1] == 64      # cap_d reached
+    if case == "clustered":
+        assert host.state.dcount.tolist()[2] == 40
+    q = np.concatenate([ids, rng.choice(2 ** bits, 2000).astype(np.uint64)])
+    np.testing.assert_array_equal(card.lookup(q), host.lookup(q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [24, 32])
+def test_hash_index_winner_rule_on_card(cuda_device, bits):
+    """``HashIndex`` on the card against its CPU run, on a batch whose
+    keys repeat and collide (table at load 0.75, four probe rounds):
+    claims and value writes pick the same winners, every slot holds a
+    whole key, and the counters agree."""
+    from repro_torch.baselines import HashIndex
+    rng = np.random.default_rng(bits)
+    ids = rng.choice(2 ** bits, 1536, replace=False).astype(np.uint64)
+    batch = np.concatenate([ids, rng.choice(ids[:64], 512)])
+    perm = rng.permutation(len(batch))
+    off = np.arange(len(batch), dtype=np.int32)[perm]
+    idx = [HashIndex(n_max=1024, key_bits=bits, rounds=4, device=d)
+           for d in (cuda_device, "cpu")]
+    for h in idx:
+        h.insert(batch[perm], off)
+    torch.cuda.synchronize()
+    for name in ("khi", "klo", "val", "used", "overflow"):
+        assert torch.equal(getattr(idx[0].state, name).cpu(),
+                           getattr(idx[1].state, name)), name
+    assert int(idx[1].state.overflow) > 0
+    np.testing.assert_array_equal(idx[0].lookup(ids), idx[1].lookup(ids))

@@ -188,6 +188,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.analytics.incremental\n"
         "import repro_torch.storage, repro_torch.storage.crash_smoke\n"
         "import repro_torch.dist, repro_torch.dist.graph_engine\n"
+        "import repro_torch.baselines, repro_torch.kernels.art\n"
+        "import repro_torch.launch, repro_torch.launch.dryrun_graph\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
