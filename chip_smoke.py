@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
                           [--analytics-edges 2097152]
-                          [--sharded-ops 5242880] [--parent DIR]
+                          [--sharded-ops 5242880] [--lm-requests 32]
+                          [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -156,7 +157,25 @@ Phases (any failure raises and the script exits non-zero):
    and its dense fallback both run, a budgeted vertex sync after each
    batch, the degree and snapshot reads, then bfs, khop k = 2, wcc and
    sssp with frontier budget 64): every stacked leaf and answer
-   identical, and the plain run launches nothing.
+   identical, and the plain run launches nothing;
+14. LM serving (``repro_torch.serve.ServeEngine`` over
+   ``repro_torch.models``): internlm2-1.8b at its published width in
+   bf16 (1,889,110,016 params, random from ``--seed``), ``--lm-requests``
+   requests (32; fewer, a multiple of 8, and ``reduced`` printed, where
+   the time so far projects past the script's limit) with prompts of
+   16-512 tokens and 32 new tokens each on 8 slots of 1,024, RadixKV
+   blocks of 16: tokens/s, prefill ms a request and decode-step ms (p50 /
+   p99, the first of each apart), RadixKV defrags, overflow and
+   utilisation, the bf16 tokens against the train-mode forward
+   teacher-forced (printed), and 8 decode steps under ``torch.profiler``
+   (launches a step, the device's busy share, the step's bytes bound);
+   it fails unless every request finishes with tokens in the vocabulary
+   and finite logits, no admission overflows, a defrag runs and no graph
+   kernel launches. Then the float32 gate at full width (TF32 off): 8
+   requests of 16 new tokens on 4 slots, every served token equal to the
+   teacher-forced argmax wherever its top-2 gap exceeds 4e-3, and a
+   prefill plus 8 decode steps on a batch of 4 within rtol 2e-2 / atol
+   2e-3 of the forward's logits.
 
 The ``kernels`` line gives each kernel's main-path ``launches``, the
 durability replay's ``replay_launches``, the sharded phase's
@@ -3642,6 +3661,354 @@ def phase_parity(torch):
         plain_launches=counts[1])
 
 
+# the LM serving phase (``repro_torch.serve``): internlm2-1.8b at its
+# published width (the repo's own serving example, examples/serve_lm.py,
+# serves it), random weights from the seed. The bf16 run: 8 slots of 1024
+# tokens, prompts of 16-512 tokens, 32 new tokens each, RadixKV blocks of
+# 16 tokens; the pool holds (slots + 1) 2x extents of the longest request,
+# enough that no admission ever overflows (a live extent is at most 2x its
+# tokens: 8 of them, and one new extent) and small enough that 32 requests
+# recycle finished ones at a defrag. The float32 gate: the same CONFIG and
+# seed in float32 (TF32 off), 8 requests of 16 new tokens on 4 slots,
+# held to the train-mode forward teacher-forced; a prefill and 8 decode
+# steps on a batch of 4 held to it at the JAX suite's tolerance.
+LM_SERVE = dict(arch="internlm2-1.8b", config="CONFIG", device="cuda",
+                slots=8, smax=1024, prompt=(16, 512), new=32,
+                block_tokens=16, gate_requests=8, gate_new=16,
+                gate_slots=4, gate_batch=4, gate_steps=8)
+LM_TIE_GAP = 4e-3          # a served f32 token must be the oracle's argmax
+LM_GATE_TOL = dict(rtol=2e-2, atol=2e-3)   # where its top-2 gap exceeds it
+LM_PROFILE_STEPS = 8
+LM_DEFRAG_REQUESTS = 32    # from this many bf16 requests a defrag must run
+# the phase's seconds: the builds, the gate and the profile (LM_FIXED_S;
+# 7.5-11 s in H100 runs) and each bf16 request's prefill, decode share
+# and teacher-forced check (LM_PER_REQUEST_S; 0.3-0.4 s on an H100 whose
+# main path ran 133,000-190,000 updates/s, 0.6 s on one that ran 116,000)
+LM_FIXED_S = 15.0
+LM_PER_REQUEST_S = 0.6
+
+
+def lm_leaves(params):
+    """The tensors of a (nested) LM param dict."""
+    return [x for v in params.values()
+            for x in (lm_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def lm_requests(requested: int, elapsed_s: float) -> int:
+    """The bf16 run's requests that keep the projected script time inside
+    ``TIME_LIMIT_S`` less ``TIME_MARGIN_S``: a multiple of 8, at least 8."""
+    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - LM_FIXED_S
+    return int(min(requested, max(8, room / LM_PER_REQUEST_S // 8 * 8)))
+
+
+def lm_kv_blocks(cfg) -> int:
+    longest = cfg["prompt"][1] + cfg["new"]
+    return (cfg["slots"] + 1) * 2 * -(-longest // cfg["block_tokens"])
+
+
+def lm_prompts(rng, n, vocab):
+    lo, hi = LM_SERVE["prompt"]
+    return [rng.integers(0, vocab, int(s)).astype(np.int32)
+            for s in rng.integers(lo, hi + 1, n)]
+
+
+def lm_teacher(torch, cfg, params, prompt, out):
+    """The train-mode forward over ``prompt`` + ``out`` teacher-forced: per
+    served token, the oracle's argmax, its top-2 gap, and whether the
+    served token is that argmax."""
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.concatenate([prompt, out[:-1]]),
+                           dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        h, _, _ = lm.forward(cfg, params, toks, lm.make_positions(cfg, toks),
+                             "train")
+        logits = lm._unembed(cfg, params, h[:, len(prompt) - 1:])[0]
+        top = torch.topk(logits, 2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        agree = torch.argmax(logits, dim=-1) == torch.as_tensor(
+            out, device=dev)
+    return agree.cpu().numpy(), gap.cpu().numpy()
+
+
+def lm_agreement(torch, cfg, params, prompts, results):
+    """Served tokens against the teacher-forced oracle: the tokens, those
+    equal to its argmax, its near ties (top-2 gap <= ``LM_TIE_GAP``) and
+    the served tokens that differ where the gap is wider."""
+    agree, gap = zip(*(lm_teacher(torch, cfg, params, prompts[i],
+                                  results[i]) for i in sorted(results)))
+    agree, gap = np.concatenate(agree), np.concatenate(gap)
+    tie = gap <= LM_TIE_GAP
+    return dict(tokens=int(len(agree)), equal_argmax=int(agree.sum()),
+                near_ties=int(tie.sum()),
+                decisive_mismatches=int((~agree & ~tie).sum()),
+                least_gap_of_a_mismatch=float(gap[~agree].min())
+                if (~agree).any() else None)
+
+
+def lm_engine(torch, model, params, slots, blocks):
+    """A ``ServeEngine`` whose prefills and decode steps are timed
+    (synchronised), whose RadixKV utilisation is kept after each step, and
+    whose logits are checked finite on the device."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, params, slots=slots, smax=LM_SERVE["smax"],
+                      kv_blocks=blocks,
+                      block_tokens=LM_SERVE["block_tokens"])
+    eng.prefill_ms, eng.step_ms, eng.kv_util = [], [], []
+    eng.nonfinite = torch.zeros((), dtype=torch.int64, device=eng.device)
+
+    def timed(fn, into):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            eng.kv_util.append(eng.kv.utilization)
+            return out
+        return call
+
+    def finite(fn):
+        def call(p, batch, cache):
+            logits, cache = fn(p, batch, cache)
+            eng.nonfinite += (~torch.isfinite(logits)).sum()
+            return logits, cache
+        return call
+    eng._prefill_into_slot = timed(eng._prefill_into_slot, eng.prefill_ms)
+    eng.step = timed(eng.step, eng.step_ms)
+    eng._prefill = finite(eng._prefill)
+    eng._decode = finite(eng._decode)
+    return eng
+
+
+def lm_decode_profile(torch, eng, prompts, cfg, pbytes):
+    """``LM_PROFILE_STEPS`` decode steps with every slot busy, under
+    ``torch.profiler`` (device activity only: host op events would cost
+    seconds to collect): launches a step (the runtime's launch calls, and
+    the kernel events kept), the device's busy share, and the step's
+    bandwidth bound (every weight but the embedding table read once, the
+    slots' embedding rows, and each slot's valid K/V) beside the bytes the
+    plain attention reads (each slot's whole cache)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts[:eng.slots]:
+        eng.submit(p, max_new=LM_PROFILE_STEPS + 4)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    kv_row = cfg.layers * cfg.kv_heads * cfg.hd * 2 * cfg.cdt.itemsize
+    # step j reads pos + j + 1 entries of each slot: the mean over steps
+    valid = sum(min(r.pos + (LM_PROFILE_STEPS + 1) / 2, LM_SERVE["smax"])
+                for r in eng.active.values())
+    t_trace = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t_events = time.perf_counter()
+    launch_calls = kernels = busy_us = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+        elif "LaunchKernel" in e.name:
+            launch_calls += 1
+    embed = eng.params["embed"]
+    weight_bytes = pbytes - embed.numel() * embed.element_size() + \
+        eng.slots * embed.shape[1] * embed.element_size()
+    kv_bytes = valid * kv_row
+    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    step_ms = wall * 1e3 / LM_PROFILE_STEPS
+    return dict(steps=LM_PROFILE_STEPS, step_ms=step_ms,
+                launch_calls_per_step=launch_calls / LM_PROFILE_STEPS,
+                kernel_events_per_step=kernels / LM_PROFILE_STEPS,
+                device_busy_share=busy_us / (wall * 1e6),
+                weight_bytes=weight_bytes, kv_valid_bytes=kv_bytes,
+                kv_bytes_read_by_plain_attention=eng.slots *
+                LM_SERVE["smax"] * kv_row,
+                bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / step_ms,
+                trace_s=t_events - t_trace,
+                events_s=time.perf_counter() - t_events)
+
+
+def lm_batch_gate(torch, model, params, prompts):
+    """``model.prefill`` and ``gate_steps`` greedy ``model.decode`` steps on
+    a batch of ``gate_batch`` prompts (each cut to the shortest), against
+    the train-mode forward over the same tokens: the largest error beside
+    ``LM_GATE_TOL``."""
+    from repro_torch.models import lm
+    cfg, dev = model.cfg, params["embed"].device
+    B, n = LM_SERVE["gate_batch"], LM_SERVE["gate_steps"]
+    S = min(len(p) for p in prompts[:B])
+    toks = torch.as_tensor(np.stack([p[:S] for p in prompts[:B]]),
+                           dtype=torch.int32, device=dev)
+    cache = model.init_cache(B, S + n, device=dev)
+    logits, cache = model.prefill(params, {"tokens": toks}, cache)
+    served, fed = [logits], []
+    for j in range(n):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        fed.append(nxt)
+        logits, cache = model.decode(params, {"token": nxt, "pos": torch.full(
+            (B,), S + j, dtype=torch.int32, device=dev)}, cache)
+        served.append(logits)
+    allt = torch.cat([toks, torch.stack(fed, 1)], 1)
+    with torch.inference_mode():
+        h, _, _ = lm.forward(cfg, params, allt, lm.make_positions(cfg, allt),
+                             "train")
+        ref = lm._unembed(cfg, params, h[:, S - 1:]).cpu().numpy()
+    got = torch.stack(served, 1).cpu().numpy()
+    err = np.abs(got - ref)
+    ok = err <= LM_GATE_TOL["atol"] + LM_GATE_TOL["rtol"] * np.abs(ref)
+    return dict(batch=B, prompt_tokens=S, decode_steps=n,
+                max_abs_err=float(err.max()),
+                max_rel_err=float((err / np.maximum(np.abs(ref), 1e-30))
+                                  [~ok].max()) if (~ok).any() else 0.0,
+                outside_tol=int((~ok).sum()), **LM_GATE_TOL)
+
+
+def phase_lm_serve(args, torch, elapsed_s=0.0):
+    """The LM serving path of the port on the card (see ``LM_SERVE``): the
+    bf16 served run (printed, checked: every request finishes with its
+    tokens in the vocabulary, finite logits, no admission overflow, a
+    RadixKV defrag, none of the five graph kernels launched), a profile of
+    8 decode steps, then the float32 gate. Fails on any check."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.api import build_model, param_counts
+    t_phase = time.perf_counter()
+    dev = LM_SERVE["device"]
+    cfg = getattr(get_arch(LM_SERVE["arch"]), LM_SERVE["config"])
+    n = lm_requests(args.lm_requests, elapsed_s)
+    if n < args.lm_requests:
+        say("reduced", lm_requests=n, asked=args.lm_requests,
+            elapsed_s=elapsed_s)
+    prompts = lm_prompts(np.random.default_rng(args.seed), n, cfg.vocab)
+    blocks = lm_kv_blocks(LM_SERVE)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(t.numel() for t in lm_leaves(params))
+    pbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
+    if count != param_counts(cfg)[0] or \
+            {t.dtype for t in lm_leaves(params)} != {cfg.pdt}:
+        raise AssertionError("lm_serve: params differ from param_counts "
+                             f"or from {cfg.param_dtype}")
+    kops.reset_launch_counts()
+    eng = lm_engine(torch, model, params, LM_SERVE["slots"], blocks)
+    t0 = time.perf_counter()
+    results = eng.run(prompts, max_new=LM_SERVE["new"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graph_launches = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = np.array([t for i in sorted(results) for t in results[i]])
+    kv = eng.kv
+    stats = dict(defrags=kv.defrags, overflow=kv.overflow,
+                 utilization_max=max(eng.kv_util),
+                 utilization_mean=float(np.mean(eng.kv_util)),
+                 kv_blocks=blocks)
+    fails = []
+    if sorted(results) != list(range(n)) or any(
+            len(v) != LM_SERVE["new"] for v in results.values()):
+        fails.append("a request did not finish with its tokens")
+    if len(toks) and (toks.min() < 0 or toks.max() >= cfg.vocab):
+        fails.append("a token outside the vocabulary")
+    if int(eng.nonfinite):
+        fails.append(f"{int(eng.nonfinite)} non-finite logits")
+    if kv.overflow or (kv.defrags < 1 and n >= LM_DEFRAG_REQUESTS):
+        fails.append(f"RadixKV {stats}: want 0 overflow and a defrag")
+    if any(graph_launches.values()):
+        fails.append(f"graph kernels launched: {graph_launches}")
+    pct = (lambda xs, q: float(np.percentile(xs, q)))
+    # the first prefill and step (cuBLAS's set-up) apart from the rest
+    timing = dict(first_prefill_ms=eng.prefill_ms[0],
+                  first_step_ms=eng.step_ms[0],
+                  prefill_ms_p50=pct(eng.prefill_ms[1:], 50),
+                  prefill_ms_p99=pct(eng.prefill_ms[1:], 99),
+                  decode_steps=len(eng.step_ms),
+                  decode_step_ms_p50=pct(eng.step_ms[1:], 50),
+                  decode_step_ms_p99=pct(eng.step_ms[1:], 99))
+    t0 = time.perf_counter()
+    bf16_agree = lm_agreement(torch, cfg, params, prompts, results)
+    teacher_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profile = lm_decode_profile(torch, eng, prompts, cfg, pbytes)
+    profile_s = time.perf_counter() - t0
+    say("lm_serve", card=card_line(), arch=cfg.arch, dtype=cfg.param_dtype,
+        layers=cfg.layers, d_model=cfg.d_model, params=count,
+        param_bytes=pbytes, init_s=init_s, requests=n,
+        slots=LM_SERVE["slots"], smax=LM_SERVE["smax"],
+        new_tokens=LM_SERVE["new"],
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        served_tokens=int(len(toks)), seconds=wall,
+        tokens_per_s=len(toks) / wall, **timing, radix_kv=stats,
+        graph_kernel_launches=graph_launches, peak_memory_bytes=peak,
+        teacher_forced=bf16_agree, decode_profile=profile,
+        seconds_by_part=dict(init=init_s, run=wall, teacher=teacher_s,
+                             profile=profile_s),
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_serve: {fails}")
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    # the float32 gate: full width, TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    marks = [time.perf_counter()]
+    try:
+        cfg32 = cfg.scaled(param_dtype="float32", compute_dtype="float32")
+        model = build_model(cfg32)
+        params = model.init(torch.Generator(dev).manual_seed(args.seed))
+        gp = prompts[:LM_SERVE["gate_requests"]]
+        eng = lm_engine(torch, model, params, LM_SERVE["gate_slots"], blocks)
+        marks.append(time.perf_counter())
+        res = eng.run(gp, max_new=LM_SERVE["gate_new"])
+        marks.append(time.perf_counter())
+        served = lm_agreement(torch, cfg32, params, gp, res)
+        marks.append(time.perf_counter())
+        batch = lm_batch_gate(torch, model, params, gp)
+        marks.append(time.perf_counter())
+        peak32 = torch.cuda.max_memory_allocated()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    fails = []
+    if sorted(res) != list(range(len(gp))) or int(eng.nonfinite):
+        fails.append("a gate request did not finish, or non-finite logits")
+    if served["decisive_mismatches"]:
+        fails.append(f"{served['decisive_mismatches']} served tokens differ "
+                     f"from the oracle where its top-2 gap > {LM_TIE_GAP}")
+    if batch["outside_tol"]:
+        fails.append(f"prefill/decode logits outside {LM_GATE_TOL}")
+    say("lm_serve_gate", card=card_line(), dtype="float32", tf32=False,
+        requests=len(gp), slots=LM_SERVE["gate_slots"],
+        new_tokens=LM_SERVE["gate_new"],
+        param_bytes=sum(t.numel() * 4 for t in lm_leaves(params)),
+        served=served, tie_gap=LM_TIE_GAP, batch=batch,
+        decode_step_ms_p50=pct(eng.step_ms, 50),
+        prefill_ms_p50=pct(eng.prefill_ms, 50),
+        peak_memory_bytes=peak32,
+        seconds_by_part=dict(zip(("init", "run", "teacher", "batch"),
+                                 np.diff(marks).tolist())),
+        failed=fails or None,
+        phase_seconds=time.perf_counter() - t_phase)
+    if fails:
+        raise AssertionError(f"lm_serve_gate: {fails}")
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3653,6 +4020,8 @@ def main(argv=None):
     ap.add_argument("--sharded-ops", type=int, default=(1 << 22) + (1 << 20),
                     help="ops of the main path's stream the sharded phase "
                          "applies")
+    ap.add_argument("--lm-requests", type=int, default=32,
+                    help="requests of the LM serving phase's bf16 run")
     ap.add_argument("--parent", default=None,
                     help="checkout of an earlier commit whose kernel "
                          "wrappers are timed beside this one's")
@@ -3668,10 +4037,11 @@ def main(argv=None):
         count=torch.cuda.device_count())
     if args.ingest_ops < (1 << 22) or args.mixed_ops < (1 << 20) or \
             args.analytics_edges < (1 << 21) or \
-            args.sharded_ops < (1 << 22) + (1 << 20):
+            args.sharded_ops < (1 << 22) + (1 << 20) or \
+            args.lm_requests < 32:
         say("reduced", ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops,
             analytics_edges=args.analytics_edges,
-            sharded_ops=args.sharded_ops)
+            sharded_ops=args.sharded_ops, lm_requests=args.lm_requests)
 
     t0 = time.perf_counter()
     chase_lib = phase_build()
@@ -3711,6 +4081,7 @@ def main(argv=None):
         line["sharded_service_launches"] = sv_launches[line["name"]]
     kernels.append(art_line)
     phase_parity(torch)
+    phase_lm_serve(args, torch, time.perf_counter() - t_start)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

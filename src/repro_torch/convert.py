@@ -12,7 +12,11 @@ axis, as ``dist.graph_engine.make_sharded_state`` and the JAX package
 stack it) converts the same way. Fields are matched by name, so the port
 never sees a JAX object.
 ``snapshot_from_numpy`` / ``snapshot_to_numpy`` do the same for a CSR
-``GraphSnapshot``.
+``GraphSnapshot``. ``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry
+an LM parameter dict (the JAX package's params after ``jax.tree.map(
+np.asarray, params)``) into the port and back, dtypes kept: bfloat16
+leaves (``ml_dtypes.bfloat16`` in numpy, which ``torch.from_numpy``
+refuses) go through their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from .core.sort import SortState
 from .core.vertex_table import VertexTable
 
 __all__ = ["state_from_numpy", "state_to_numpy", "snapshot_from_numpy",
-           "snapshot_to_numpy"]
+           "snapshot_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy"]
 
 _UINT32_FIELDS = ("ids",)
 
@@ -94,3 +98,30 @@ def snapshot_to_numpy(snap: GraphSnapshot) -> GraphSnapshot:
     dtypes)."""
     return GraphSnapshot(**{f: _to_numpy(f, getattr(snap, f))
                             for f in GraphSnapshot._fields})
+
+
+def lm_params_from_numpy(tree, device="cuda"):
+    """A dict (nested) of numpy arrays as the same dict of tensors on
+    ``device``, each with its dtype."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            bits = np.array(a.view(np.uint16), copy=True).view(np.int16)
+            return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return {k: lm_params_from_numpy(v, device) if isinstance(v, dict)
+            else leaf(v) for k, v in tree.items()}
+
+
+def lm_params_to_numpy(params):
+    """The port's LM params as a dict of numpy arrays (bfloat16 leaves as
+    ``ml_dtypes.bfloat16``, the dtype JAX hands to numpy)."""
+    def leaf(t):
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes     # only where a bfloat16 leaf needs it
+            return _host(t.view(torch.int16)).view(ml_dtypes.bfloat16)
+        return _host(t)
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in params.items()}

@@ -190,6 +190,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.dist, repro_torch.dist.graph_engine\n"
         "import repro_torch.baselines, repro_torch.kernels.art\n"
         "import repro_torch.launch, repro_torch.launch.dryrun_graph\n"
+        "import repro_torch.models, repro_torch.models.api\n"
+        "import repro_torch.configs, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve\n"
+        "repro_torch.configs.get_arch('qwen2-vl-2b')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
