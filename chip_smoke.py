@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
                           [--analytics-edges 2097152]
-                          [--sharded-ops 5242880] [--lm-requests 32]
+                          [--sharded-ops 1048576] [--lm-requests 32]
                           [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
@@ -63,11 +63,13 @@ Phases (any failure raises and the script exits non-zero):
    a control store;
 6. sharded path, after the main store is freed: ``make_store("sharded",
    device="cuda")`` with 4 shards on the one card (2^23 vertex rows and
-   2^21 pool blocks of 16 a shard: the pools total the main path's), the
-   main path's stream (``--sharded-ops`` of it) in ``apply`` calls of
+   2^21 pool blocks of 16 a shard: the pools total the main path's), a
+   prefix of the main path's stream (``--sharded-ops``: 2^20 of its
+   5,242,880 ops, printed under ``reduced``) in ``apply`` calls of
    4096 ops, launch counters zeroed just before and read just after
-   (``append``, ``compact_rows`` and ``sort_lookup`` must run; every
-   rebuild must stream); updates/s, per-batch p50 / p99 ms, rebuilds per
+   (``append``, ``compact_rows`` and ``sort_lookup`` must run; a rebuild
+   must run, and every rebuild must stream); updates/s, the batches
+   after which a rebuild ran, per-batch p50 / p99 ms, rebuilds per
    shard, route fallbacks, sync runs and skips, host syncs and launches
    per batch, the state's bytes by part, peak memory, each shard's row
    high-water mark; lookup / degree / neighbors of 4096 sampled source
@@ -175,7 +177,51 @@ Phases (any failure raises and the script exits non-zero):
    requests of 16 new tokens on 4 slots, every served token equal to the
    teacher-forced argmax wherever its top-2 gap exceeds 4e-3, and a
    prefill plus 8 decode steps on a batch of 4 within rtol 2e-2 / atol
-   2e-3 of the forward's logits.
+   2e-3 of the forward's logits;
+15. ``lm_ssm``: mamba2-1.3b at its published width in bf16 (1,343,532,032
+   params) through ``ServeEngine``: 16 requests (fewer, one a slot at the
+   least, and ``reduced`` printed, where the time so far projects past
+   the script's limit with the later phases at their floors) of 16-512
+   tokens, 32 new each, 8 slots of 1,024: tokens/s, prefill and decode-step
+   p50 / p99, the decode state's bytes a slot, the served tokens against
+   the teacher-forced argmax from each request's admission state (the JAX
+   engine's prefill reads a reused slot's conv tails), and 8 profiled
+   decode steps (launches, busy share, the bytes bound: weights and the
+   state read and written). The float32 gate (TF32 off; weights at a
+   trained model's scale, 1/sqrt(fan-in): at the init's 1/sqrt(L) float32
+   cannot hold a deep random model's answer), as ``lm_serve``'s: 8
+   requests of 16 new tokens on 4 slots, each served token equal to the
+   teacher-forced argmax from its admission state where the top-2 gap
+   exceeds 4e-3 (the count that differs from the zero-state forward
+   printed), then a batch-4 prefill and 8 decode steps within rtol 2e-2
+   / atol 2e-3;
+16. ``lm_hybrid``: recurrentgemma-9b the same way (9,396,088,832 params;
+   8 slots with ``smax`` 4,096, so the attention cache is the 2,048-entry
+   ring; prompts of 16-3,072 tokens, at least one past the window); its
+   float32 gate on 4 requests after the bf16 model is freed;
+17. ``lm_moe``: kimi-k2-1t-a32b at its published width, 1 of its 61
+   layers (``reduced``; 19,378,623,488 params, 38.76 GB): 16 requests of
+   16-512 tokens, 32 new each, 8 slots of 1,024; dropped (token, expert)
+   pairs a prefill and a decode step, expert load (max / mean) and the
+   aux loss from every MoE call's input, the decode step's bytes bound
+   (the experts its tokens chose; beside it the dense dispatch's, every
+   expert read). The gate: the first prefill's and a decode step's
+   MoE inputs through ``layers.moe_ffn`` against a float32 loop over the
+   experts on the card from the same bf16 weights (routing of its own on
+   the host): expert choice, ranks and kept slots equal, the layer in
+   float32 within rtol 2e-2 / atol 2e-3 of the output's scale, the layer
+   as served (bf16) within rtol 2e-2 / atol 2e-2 of it;
+18. ``lm_encdec``: whisper-small at its published width (238,060,800
+   params): 8 requests of 1,500 stub frame embeddings and decoder prompts
+   of 4-64 tokens, each prefilled through ``model.prefill`` into its row,
+   then 63 ``model.decode`` steps of the batch with ``enc_out``; at the
+   init's scale the float32 encoder against float64 (``encdec_f64``,
+   printed); the float32 gate (1/sqrt(fan-in)): 4 of them, every decode
+   logit within rtol 2e-2 / atol 2e-3 of the train-mode forward on the
+   same ``enc_out``.
+   Each of 15-18 fails if a request does not finish, a token is outside
+   the vocabulary, a logit is not finite, RadixKV overflows (15-17) or a
+   graph kernel's launch counter moves.
 
 The ``kernels`` line gives each kernel's main-path ``launches``, the
 durability replay's ``replay_launches``, the sharded phase's
@@ -195,7 +241,9 @@ Nothing here imports JAX or the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1598,6 +1646,11 @@ def crash_smoke(args, cdir, torch):
 # (2^23, 2 + 2) payload a shard (2^25 routed rows of 5 int64 words: 1.34 GB
 # a shard); the degree reads ride the same chunks. Every other knob keeps
 # the JAX package's default
+# the sharded phase applies this prefix of the main path's 5,242,880-op
+# stream (printed under ``reduced``): its state keeps its size (4 shards,
+# 5.40 GB) and its first rebuilds stream (H100 run of the whole stream:
+# rebuilds after batches 127 and 241 of 256 here, 9 in its 1,280)
+SHARDED_OPS = 1 << 20
 SHARDED_STORE = dict(device="cuda", n_shards=4, n_per_shard=2 ** 23,
                      expected_n=LJ_VERTICES, key_bits=32,
                      pool_blocks=2 ** 21, block_size=16, k_max=256,
@@ -1646,6 +1699,7 @@ def phase_sharded(args, torch, stream):
     kops.reset_launch_counts()
     s0, r0 = dict(ep.SYNCS), dict(ge.ROUTES)
     lat = []
+    rebuild_batches = []        # (batch, rebuilds so far) where one ran
     t_start = time.perf_counter()
     for lo in range(0, n_ops, B):
         t = time.perf_counter()
@@ -1655,6 +1709,9 @@ def phase_sharded(args, torch, stream):
         lat.append((time.perf_counter() - t) * 1e3)
         if res.dropped:
             raise AssertionError(f"sharded: {res.dropped} ops dropped")
+        if store.stats["defrags"] != (rebuild_batches[-1][1]
+                                      if rebuild_batches else 0):
+            rebuild_batches.append((len(lat) - 1, store.stats["defrags"]))
     t_apply = time.perf_counter() - t_start
     launches = kops.launch_counts()
     syncs = {k: ep.SYNCS[k] - s0[k] for k in s0}
@@ -1730,8 +1787,9 @@ def phase_sharded(args, torch, stream):
             raise AssertionError(f"kernel {k} was not launched on the "
                                  "sharded path")
     rebuilds = st.pool.defrags.tolist()
-    if sum(rebuilds) and launches["defrag_rows"] <= 0:
-        raise AssertionError("a sharded rebuild launched no defrag_rows")
+    if not sum(rebuilds) or launches["defrag_rows"] <= 0:
+        raise AssertionError("no sharded rebuild, or one that launched no "
+                             "defrag_rows")
     if syncs["defrag_dense"]:
         raise AssertionError("a sharded rebuild took the dense path")
     errs = sharded_kernel_checks(store, st, tally, launches, torch)
@@ -1745,7 +1803,8 @@ def phase_sharded(args, torch, stream):
         batch_p50_ms=float(np.percentile(lat, 50)),
         batch_p99_ms=float(np.percentile(lat, 99)),
         batch_max_ms=float(np.max(lat)),
-        rebuilds_per_shard=rebuilds, defrag_wide=syncs["defrag_wide"],
+        rebuilds_per_shard=rebuilds, rebuild_batches=rebuild_batches,
+        defrag_wide=syncs["defrag_wide"],
         route_fallbacks=routes["dense_fallback"],
         compact_routes=routes["compact"],
         sync_runs=store.stats["sync_runs"],
@@ -3671,34 +3730,36 @@ def phase_parity(torch):
 # recycle finished ones at a defrag. The float32 gate: the same CONFIG and
 # seed in float32 (TF32 off), 8 requests of 16 new tokens on 4 slots,
 # held to the train-mode forward teacher-forced; a prefill and 8 decode
-# steps on a batch of 4 held to it at the JAX suite's tolerance.
-LM_SERVE = dict(arch="internlm2-1.8b", config="CONFIG", device="cuda",
-                slots=8, smax=1024, prompt=(16, 512), new=32,
-                block_tokens=16, gate_requests=8, gate_new=16,
-                gate_slots=4, gate_batch=4, gate_steps=8)
+# steps on a batch of 4 held to it at the JAX suite's tolerance, at the
+# init's weight scale (``gate_fan_in`` False: float32 holds this 24-layer
+# model's answer there). ``requests`` is ``--lm-requests``'s default. The
+# time guard (``family_requests``): the set-up, gate and profile
+# (``fixed_s``; 7.5-11 s in H100 runs) and each bf16 request's prefill,
+# decode share and teacher-forced check (``per_request_s``; 0.3-0.4 s on
+# an H100 whose main path ran 133,000-190,000 updates/s, 0.6 s on one that
+# ran 116,000); ``floor``, the fewest requests that fill the slots.
+LM_SERVE = dict(arch="internlm2-1.8b", slots=8, smax=1024, prompt=(16, 512),
+                new=32, block_tokens=16, requests=32, floor=8,
+                gate_requests=8, gate_new=16, gate_slots=4, gate_batch=4,
+                gate_steps=8, gate_fan_in=False, fixed_s=15.0,
+                per_request_s=0.6)
 LM_TIE_GAP = 4e-3          # a served f32 token must be the oracle's argmax
 LM_GATE_TOL = dict(rtol=2e-2, atol=2e-3)   # where its top-2 gap exceeds it
 LM_PROFILE_STEPS = 8
 LM_DEFRAG_REQUESTS = 32    # from this many bf16 requests a defrag must run
-# the phase's seconds: the builds, the gate and the profile (LM_FIXED_S;
-# 7.5-11 s in H100 runs) and each bf16 request's prefill, decode share
-# and teacher-forced check (LM_PER_REQUEST_S; 0.3-0.4 s on an H100 whose
-# main path ran 133,000-190,000 updates/s, 0.6 s on one that ran 116,000)
-LM_FIXED_S = 15.0
-LM_PER_REQUEST_S = 0.6
+
+
+def free_card(torch):
+    """Collect the reference cycles an ``lm_engine`` makes (its wrapped
+    methods close over it, so a deleted engine keeps its params alive
+    until a full collection) and return the freed blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def lm_leaves(params):
     """The tensors of a (nested) LM param dict."""
-    return [x for v in params.values()
-            for x in (lm_leaves(v) if isinstance(v, dict) else [v])]
-
-
-def lm_requests(requested: int, elapsed_s: float) -> int:
-    """The bf16 run's requests that keep the projected script time inside
-    ``TIME_LIMIT_S`` less ``TIME_MARGIN_S``: a multiple of 8, at least 8."""
-    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - LM_FIXED_S
-    return int(min(requested, max(8, room / LM_PER_REQUEST_S // 8 * 8)))
+    return [t for _, t in lm_named_leaves(params)]
 
 
 def lm_kv_blocks(cfg) -> int:
@@ -3706,8 +3767,8 @@ def lm_kv_blocks(cfg) -> int:
     return (cfg["slots"] + 1) * 2 * -(-longest // cfg["block_tokens"])
 
 
-def lm_prompts(rng, n, vocab):
-    lo, hi = LM_SERVE["prompt"]
+def lm_prompts(rng, n, vocab, spec=LM_SERVE):
+    lo, hi = spec["prompt"]
     return [rng.integers(0, vocab, int(s)).astype(np.int32)
             for s in rng.integers(lo, hi + 1, n)]
 
@@ -3731,12 +3792,17 @@ def lm_teacher(torch, cfg, params, prompt, out):
     return agree.cpu().numpy(), gap.cpu().numpy()
 
 
-def lm_agreement(torch, cfg, params, prompts, results):
+def lm_agreement(torch, cfg, params, prompts, results, starts=None):
     """Served tokens against the teacher-forced oracle: the tokens, those
     equal to its argmax, its near ties (top-2 gap <= ``LM_TIE_GAP``) and
-    the served tokens that differ where the gap is wider."""
-    agree, gap = zip(*(lm_teacher(torch, cfg, params, prompts[i],
-                                  results[i]) for i in sorted(results)))
+    the served tokens that differ where the gap is wider. With ``starts``
+    (prompt index -> the slot's cache rows when its prefill began) the
+    oracle starts from those rows (``lm_teacher_from``)."""
+    agree, gap = zip(*(
+        lm_teacher(torch, cfg, params, prompts[i], results[i])
+        if starts is None else
+        lm_teacher_from(torch, cfg, params, prompts[i], results[i],
+                        starts[i]) for i in sorted(results)))
     agree, gap = np.concatenate(agree), np.concatenate(gap)
     tie = gap <= LM_TIE_GAP
     return dict(tokens=int(len(agree)), equal_argmax=int(agree.sum()),
@@ -3746,14 +3812,13 @@ def lm_agreement(torch, cfg, params, prompts, results):
                 if (~agree).any() else None)
 
 
-def lm_engine(torch, model, params, slots, blocks):
+def lm_engine(torch, model, params, slots, blocks, spec=LM_SERVE):
     """A ``ServeEngine`` whose prefills and decode steps are timed
     (synchronised), whose RadixKV utilisation is kept after each step, and
     whose logits are checked finite on the device."""
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(model, params, slots=slots, smax=LM_SERVE["smax"],
-                      kv_blocks=blocks,
-                      block_tokens=LM_SERVE["block_tokens"])
+    eng = ServeEngine(model, params, slots=slots, smax=spec["smax"],
+                      kv_blocks=blocks, block_tokens=spec["block_tokens"])
     eng.prefill_ms, eng.step_ms, eng.kv_util = [], [], []
     eng.nonfinite = torch.zeros((), dtype=torch.int64, device=eng.device)
 
@@ -3781,14 +3846,17 @@ def lm_engine(torch, model, params, slots, blocks):
     return eng
 
 
-def lm_decode_profile(torch, eng, prompts, cfg, pbytes):
+def lm_decode_profile(torch, eng, prompts, cfg, pbytes, spec=LM_SERVE):
     """``LM_PROFILE_STEPS`` decode steps with every slot busy, under
     ``torch.profiler`` (device activity only: host op events would cost
     seconds to collect): launches a step (the runtime's launch calls, and
     the kernel events kept), the device's busy share, and the step's
     bandwidth bound (every weight but the embedding table read once, the
     slots' embedding rows, and each slot's valid K/V) beside the bytes the
-    plain attention reads (each slot's whole cache)."""
+    plain attention reads (each slot's whole cache). For a recurrent
+    family (``ssm``, ``hybrid``) the bound also counts its state read and
+    written once a step (``lm_recurrent_bytes``), and K/V rows are those of
+    its attention layers, at most its window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for p in prompts[:eng.slots]:
@@ -3796,10 +3864,12 @@ def lm_decode_profile(torch, eng, prompts, cfg, pbytes):
     eng.step()
     eng.step()
     torch.cuda.synchronize()
-    kv_row = cfg.layers * cfg.kv_heads * cfg.hd * 2 * cfg.cdt.itemsize
+    attn_layers, kv_len = lm_attention_layers(cfg, spec["smax"])
+    kv_row = attn_layers * cfg.kv_heads * cfg.hd * 2 * cfg.cdt.itemsize
     # step j reads pos + j + 1 entries of each slot: the mean over steps
-    valid = sum(min(r.pos + (LM_PROFILE_STEPS + 1) / 2, LM_SERVE["smax"])
+    valid = sum(min(r.pos + (LM_PROFILE_STEPS + 1) / 2, kv_len)
                 for r in eng.active.values())
+    state_bytes = lm_recurrent_bytes(eng)
     t_trace = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3819,29 +3889,30 @@ def lm_decode_profile(torch, eng, prompts, cfg, pbytes):
     weight_bytes = pbytes - embed.numel() * embed.element_size() + \
         eng.slots * embed.shape[1] * embed.element_size()
     kv_bytes = valid * kv_row
-    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = (weight_bytes + kv_bytes + 2 * state_bytes) / \
+        HBM_BYTES_PER_S * 1e3
     step_ms = wall * 1e3 / LM_PROFILE_STEPS
     return dict(steps=LM_PROFILE_STEPS, step_ms=step_ms,
                 launch_calls_per_step=launch_calls / LM_PROFILE_STEPS,
                 kernel_events_per_step=kernels / LM_PROFILE_STEPS,
                 device_busy_share=busy_us / (wall * 1e6),
                 weight_bytes=weight_bytes, kv_valid_bytes=kv_bytes,
-                kv_bytes_read_by_plain_attention=eng.slots *
-                LM_SERVE["smax"] * kv_row,
+                recurrent_state_bytes_read_and_written=2 * state_bytes,
+                kv_bytes_read_by_plain_attention=eng.slots * kv_len * kv_row,
                 bound_ms=bound_ms, bound_by="bytes",
                 bound_share=bound_ms / step_ms,
                 trace_s=t_events - t_trace,
                 events_s=time.perf_counter() - t_events)
 
 
-def lm_batch_gate(torch, model, params, prompts):
+def lm_batch_gate(torch, model, params, prompts, spec=LM_SERVE):
     """``model.prefill`` and ``gate_steps`` greedy ``model.decode`` steps on
     a batch of ``gate_batch`` prompts (each cut to the shortest), against
     the train-mode forward over the same tokens: the largest error beside
     ``LM_GATE_TOL``."""
     from repro_torch.models import lm
     cfg, dev = model.cfg, params["embed"].device
-    B, n = LM_SERVE["gate_batch"], LM_SERVE["gate_steps"]
+    B, n = spec["gate_batch"], spec["gate_steps"]
     S = min(len(p) for p in prompts[:B])
     toks = torch.as_tensor(np.stack([p[:S] for p in prompts[:B]]),
                            dtype=torch.int32, device=dev)
@@ -3869,97 +3940,277 @@ def lm_batch_gate(torch, model, params, prompts):
                 outside_tol=int((~ok).sum()), **LM_GATE_TOL)
 
 
-def phase_lm_serve(args, torch, elapsed_s=0.0):
-    """The LM serving path of the port on the card (see ``LM_SERVE``): the
-    bf16 served run (printed, checked: every request finishes with its
-    tokens in the vocabulary, finite logits, no admission overflow, a
-    RadixKV defrag, none of the five graph kernels launched), a profile of
-    8 decode steps, then the float32 gate. Fails on any check."""
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops as kops
-    from repro_torch.models.api import build_model, param_counts
-    t_phase = time.perf_counter()
-    dev = LM_SERVE["device"]
-    cfg = getattr(get_arch(LM_SERVE["arch"]), LM_SERVE["config"])
-    n = lm_requests(args.lm_requests, elapsed_s)
-    if n < args.lm_requests:
-        say("reduced", lm_requests=n, asked=args.lm_requests,
-            elapsed_s=elapsed_s)
-    prompts = lm_prompts(np.random.default_rng(args.seed), n, cfg.vocab)
-    blocks = lm_kv_blocks(LM_SERVE)
+# the LM families' phases (after ``lm_serve``): each model at its published
+# width, random weights from the seed, bf16 served through ``ServeEngine``
+# (encdec through ``model.prefill`` / ``model.decode``: the engine, as the
+# JAX one, serves no encoder-decoder). Each spec's ``fixed_s`` (set-up,
+# gate, profile) and ``per_request_s`` project the phase's seconds for the
+# time guards (``family_requests``), about 1.4x the phases alone on an
+# H100 (26.5, 39.7, 16.0 and 10.0 s at these request counts); ``floor``
+# is the fewest requests that still serve the family (one a slot). The
+# recurrent families' float32 gates run at 1/sqrt(fan-in) weights
+# (``gate_fan_in``, ``lm_fan_in_scale``).
+LM_SSM = dict(arch="mamba2-1.3b", slots=8, smax=1024, prompt=(16, 512),
+              new=32, block_tokens=16, requests=16, floor=8,
+              gate_requests=8, gate_new=16, gate_slots=4, gate_batch=4,
+              gate_steps=8, gate_fan_in=True, fixed_s=25.0,
+              per_request_s=0.75)
+LM_HYBRID = dict(arch="recurrentgemma-9b", slots=8, smax=4096,
+                 prompt=(16, 3072), new=32, block_tokens=16, requests=16,
+                 floor=8, gate_requests=4, gate_new=16, gate_slots=4,
+                 gate_batch=4, gate_steps=8, gate_fan_in=True, fixed_s=30.0,
+                 per_request_s=1.5)
+# kimi-k2 at its published width, its 61 layers cut to 1: 19,378,623,488
+# params (38.76 GB in bf16); two layers and the embeddings would be 72.8 GB
+LM_MOE = dict(arch="kimi-k2-1t-a32b", layers=1, slots=8, smax=1024,
+              prompt=(16, 512), new=32, block_tokens=16, requests=16,
+              floor=8, fixed_s=15.0, per_request_s=0.5)
+# whisper-small: 1,500 stub frame embeddings a request (the encoder length
+# of a 30-second window), decoder prompts of 4-64 tokens, 64 decode steps
+LM_ENCDEC = dict(arch="whisper-small", frames=1500, prompt=(4, 64), new=64,
+                 smax=128, requests=8, floor=2, gate_requests=4,
+                 fixed_s=10.0, per_request_s=1.0)
+LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC)
+MOE_GATE_TOL = dict(rtol=2e-2, atol=2e-3)   # atol on the output's scale
+# the served (bf16) MoE layer against the float32 loop: the repo's bf16
+# tolerance (``BF16_TOL`` of tests/test_torch_models.py). Its roundings
+# (bf16 expert products, gates and an 8-way bf16 combine, as the JAX
+# package's) put a few outputs past MOE_GATE_TOL (``served_outside_tol``:
+# 35 of 3,504 x 7,168 in a first prefill on an H100), while the layer in
+# float32 holds MOE_GATE_TOL
+MOE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(dev).manual_seed(args.seed))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    count = sum(t.numel() for t in lm_leaves(params))
-    pbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
-    if count != param_counts(cfg)[0] or \
-            {t.dtype for t in lm_leaves(params)} != {cfg.pdt}:
-        raise AssertionError("lm_serve: params differ from param_counts "
-                             f"or from {cfg.param_dtype}")
-    kops.reset_launch_counts()
-    eng = lm_engine(torch, model, params, LM_SERVE["slots"], blocks)
-    t0 = time.perf_counter()
-    results = eng.run(prompts, max_new=LM_SERVE["new"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    graph_launches = kops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+
+def family_floor_s(specs) -> float:
+    """The projected seconds of ``specs``' phases at their floors."""
+    return sum(s["fixed_s"] + s["floor"] * s["per_request_s"] for s in specs)
+
+
+def family_requests(spec, elapsed_s: float) -> int:
+    """The phase's requests (at most ``spec["requests"]``) that keep the
+    projected script time inside ``TIME_LIMIT_S`` less ``TIME_MARGIN_S``
+    with the later ``LM_PHASES`` at their floors: a multiple of its floor,
+    at least the floor."""
+    archs = [s["arch"] for s in LM_PHASES]
+    later = LM_PHASES[archs.index(spec["arch"]) + 1:]
+    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - spec["fixed_s"] - \
+        family_floor_s(later)
+    f = spec["floor"]
+    n = int(min(spec["requests"], max(f, room / spec["per_request_s"] //
+                                      f * f)))
+    if n < spec["requests"]:
+        say("reduced", arch=spec["arch"], requests=n,
+            asked=spec["requests"], elapsed_s=elapsed_s)
+    return n
+
+
+def lm_attention_layers(cfg, smax):
+    """(attention layers holding K/V, the entries a slot can hold)."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        unit = len(cfg.pattern)
+        att = (cfg.layers // unit) * sum(1 for t in cfg.pattern
+                                         if t == "attn")
+        return att, min(smax, cfg.window or smax)
+    return cfg.layers, smax if cfg.window is None else min(smax, cfg.window)
+
+
+def lm_recurrent_bytes(eng) -> int:
+    """The bytes of every slot's recurrent state (SSM states, RG-LRU
+    states, conv tails): what a decode step reads, and writes again."""
+    from repro_torch.models.api import cache_leaves
+    if eng.cfg.family not in ("ssm", "hybrid"):
+        return 0
+    leaves = cache_leaves(eng.cache)
+    if eng.cfg.family == "hybrid":          # less the attention K/V
+        g, tail = eng.cache
+        leaves = cache_leaves(g[0]) + cache_leaves(tail)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def lm_named_leaves(params, prefix=""):
+    """(dotted name, tensor) for every leaf of a (nested) LM param dict."""
+    out = []
+    for k, v in params.items():
+        out += lm_named_leaves(v, f"{prefix}{k}.") if isinstance(v, dict) \
+            else [(f"{prefix}{k}", v)]
+    return out
+
+
+def lm_check_params(torch, cfg, params, where):
+    """Every leaf in ``cfg.pdt`` but the JAX init's float32 ones, and the
+    count ``param_counts`` gives. Returns (count, bytes)."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import param_counts
+    named = lm_named_leaves(params)
+    bad = [n for n, t in named if t.dtype != (
+        torch.float32 if n.split(".")[-1] in lm.FLOAT32_LEAVES
+        else cfg.pdt)]
+    count = sum(t.numel() for _, t in named)
+    if bad or count != param_counts(cfg)[0]:
+        raise AssertionError(f"{where}: params differ from param_counts, "
+                             f"or leaves not in their dtype: {bad[:4]}")
+    return count, sum(t.numel() * t.element_size() for _, t in named)
+
+
+def lm_fan_in_scale(params):
+    """Every default-scale matrix of a dense, ssm, hybrid or encdec LM
+    tree (one matrix a layer; the MoE experts' leaves, a stack of matrices
+    a layer, are left: no gate here scales a moe tree) from the init's 1 /
+    sqrt(rows drawn at once) (L for stacked layers, groups x per unit for
+    the hybrid's) to 1 / sqrt(fan-in), its ``shape[-2]``: a trained
+    model's scale, as ``tests/_lm_cases.py`` gives the CPU parity tests.
+    At the init's own scale attention scores run to thousands and a deep
+    model is chaotic: float32 cannot hold its answer (whisper-small's
+    float32 encoder is 10% of its scale off a float64 one; ``encdec_f64``
+    prints it), so a float32 gate would compare two chaotic paths. In
+    place; conv weights, norms, the embedding and ``lm_head`` (already at
+    1 / sqrt(d)) are left."""
+    for tree_name, lead in (("layers", 1), ("enc_layers", 1),
+                            ("dec_layers", 1), ("tail", 1), ("groups", 2)):
+        stack = [params[tree_name]] if tree_name in params else []
+        while stack:
+            for k, v in stack.pop().items():
+                if isinstance(v, dict):
+                    stack.append(v)
+                elif k != "conv_w" and v.dim() == lead + 2:
+                    drawn = math.prod(v.shape[:lead])
+                    v.mul_(math.sqrt(drawn / v.shape[-2]))
+
+
+def lm_snapshot_starts(torch, eng, prompts):
+    """Make ``eng`` keep, for each prompt it admits, a copy of its slot's
+    cache rows as the prefill finds them (the JAX engine's prefill reads
+    a recurrent family's conv tails there: a reused slot starts from what
+    its last request left). Keyed by prompt index (``ServeEngine.submit``
+    keeps an int32 prompt array as given)."""
+    from repro_torch.models.api import cache_map
+    index = {id(p): i for i, p in enumerate(prompts)}
+    starts = {}
+    inner = eng._prefill_into_slot
+
+    def snap(req):
+        starts[index[id(req.prompt)]] = cache_map(
+            torch.clone, eng._rows(eng.cache, req.slot))
+        return inner(req)
+    eng._prefill_into_slot = snap
+    return starts
+
+
+def lm_teacher_from(torch, cfg, params, prompt, out, start):
+    """``lm_teacher`` from the state a request's prefill started in: the
+    prompt and the served tokens teacher-forced through one prefill-mode
+    forward on a copy of ``start`` (the slot's rows then). From a zero
+    state this is the train-mode forward's answer."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import cache_map
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.concatenate([prompt, out[:-1]]),
+                           dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        h, _, _ = lm.forward(cfg, params, toks, lm.make_positions(cfg, toks),
+                             "prefill", cache=cache_map(torch.clone, start))
+        logits = lm._unembed(cfg, params, h[:, len(prompt) - 1:])[0]
+        top = torch.topk(logits, 2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        agree = torch.argmax(logits, dim=-1) == torch.as_tensor(
+            out, device=dev)
+    return agree.cpu().numpy(), gap.cpu().numpy()
+
+
+def lm_served_checks(eng, cfg, n, new, results, graph_launches):
+    """The checks every LM phase fails on: a request that did not finish
+    with its tokens, a token outside the vocabulary, a non-finite logit,
+    a RadixKV overflow, a graph kernel launched."""
     toks = np.array([t for i in sorted(results) for t in results[i]])
-    kv = eng.kv
-    stats = dict(defrags=kv.defrags, overflow=kv.overflow,
-                 utilization_max=max(eng.kv_util),
-                 utilization_mean=float(np.mean(eng.kv_util)),
-                 kv_blocks=blocks)
     fails = []
     if sorted(results) != list(range(n)) or any(
-            len(v) != LM_SERVE["new"] for v in results.values()):
+            len(v) != new for v in results.values()):
         fails.append("a request did not finish with its tokens")
     if len(toks) and (toks.min() < 0 or toks.max() >= cfg.vocab):
         fails.append("a token outside the vocabulary")
     if int(eng.nonfinite):
         fails.append(f"{int(eng.nonfinite)} non-finite logits")
-    if kv.overflow or (kv.defrags < 1 and n >= LM_DEFRAG_REQUESTS):
-        fails.append(f"RadixKV {stats}: want 0 overflow and a defrag")
+    if eng.kv.overflow:
+        fails.append(f"RadixKV overflowed {eng.kv.overflow} times")
     if any(graph_launches.values()):
         fails.append(f"graph kernels launched: {graph_launches}")
-    pct = (lambda xs, q: float(np.percentile(xs, q)))
-    # the first prefill and step (cuBLAS's set-up) apart from the rest
-    timing = dict(first_prefill_ms=eng.prefill_ms[0],
-                  first_step_ms=eng.step_ms[0],
-                  prefill_ms_p50=pct(eng.prefill_ms[1:], 50),
-                  prefill_ms_p99=pct(eng.prefill_ms[1:], 99),
-                  decode_steps=len(eng.step_ms),
-                  decode_step_ms_p50=pct(eng.step_ms[1:], 50),
-                  decode_step_ms_p99=pct(eng.step_ms[1:], 99))
-    t0 = time.perf_counter()
-    bf16_agree = lm_agreement(torch, cfg, params, prompts, results)
-    teacher_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    profile = lm_decode_profile(torch, eng, prompts, cfg, pbytes)
-    profile_s = time.perf_counter() - t0
-    say("lm_serve", card=card_line(), arch=cfg.arch, dtype=cfg.param_dtype,
-        layers=cfg.layers, d_model=cfg.d_model, params=count,
-        param_bytes=pbytes, init_s=init_s, requests=n,
-        slots=LM_SERVE["slots"], smax=LM_SERVE["smax"],
-        new_tokens=LM_SERVE["new"],
-        prompt_tokens=int(sum(len(p) for p in prompts)),
-        served_tokens=int(len(toks)), seconds=wall,
-        tokens_per_s=len(toks) / wall, **timing, radix_kv=stats,
-        graph_kernel_launches=graph_launches, peak_memory_bytes=peak,
-        teacher_forced=bf16_agree, decode_profile=profile,
-        seconds_by_part=dict(init=init_s, run=wall, teacher=teacher_s,
-                             profile=profile_s),
-        failed=fails or None)
-    if fails:
-        raise AssertionError(f"lm_serve: {fails}")
-    del eng, params, model
-    torch.cuda.empty_cache()
+    return toks, fails
 
-    # the float32 gate: full width, TF32 off
+
+def lm_timing(eng):
+    pct = (lambda xs, q: float(np.percentile(xs, q)) if xs else None)
+    # the first prefill (every slot's row: no request was active) and the
+    # first step (cuBLAS's set-up) apart from the rest
+    return dict(first_prefill_ms=eng.prefill_ms[0],
+                first_step_ms=eng.step_ms[0],
+                prefill_ms_p50=pct(eng.prefill_ms[1:], 50),
+                prefill_ms_p99=pct(eng.prefill_ms[1:], 99),
+                decode_steps=len(eng.step_ms),
+                decode_step_ms_p50=pct(eng.step_ms[1:], 50),
+                decode_step_ms_p99=pct(eng.step_ms[1:], 99))
+
+
+def lm_served_run(args, torch, spec, cfg, elapsed_s, tag):
+    """The bf16 run of a served family (``spec``): init from the seed,
+    ``family_requests`` requests through an ``lm_engine`` with launch
+    counters zeroed just before and read just after. Returns what the
+    phase prints and checks."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.api import build_model
+    n = family_requests(spec, elapsed_s)
+    prompts = lm_prompts(np.random.default_rng(args.seed), n, cfg.vocab,
+                         spec)
+    blocks = lm_kv_blocks(spec)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count, pbytes = lm_check_params(torch, cfg, params, tag)
+    eng = lm_engine(torch, model, params, spec["slots"], blocks, spec)
+    starts = lm_snapshot_starts(torch, eng, prompts) \
+        if cfg.family in ("ssm", "hybrid") else None
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run(prompts, max_new=spec["new"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graph_launches = kops.launch_counts()
+    toks, fails = lm_served_checks(eng, cfg, n, spec["new"], results,
+                                   graph_launches)
+    line = dict(card=card_line(), arch=cfg.arch, family=cfg.family,
+                dtype=cfg.param_dtype, layers=cfg.layers,
+                d_model=cfg.d_model, params=count, param_bytes=pbytes,
+                init_s=init_s, requests=n, slots=spec["slots"],
+                smax=spec["smax"], new_tokens=spec["new"],
+                prompt_tokens=int(sum(len(p) for p in prompts)),
+                served_tokens=int(len(toks)), seconds=wall,
+                tokens_per_s=len(toks) / wall, **lm_timing(eng),
+                radix_kv=dict(defrags=eng.kv.defrags,
+                              overflow=eng.kv.overflow,
+                              utilization_max=max(eng.kv_util),
+                              utilization_mean=float(np.mean(eng.kv_util)),
+                              kv_blocks=blocks),
+                graph_kernel_launches=graph_launches,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return dict(model=model, params=params, eng=eng, prompts=prompts,
+                results=results, starts=starts, pbytes=pbytes, line=line,
+                fails=fails)
+
+
+def lm_float32_gate(args, torch, spec, cfg, prompts, tag):
+    """The float32 gate at full width (TF32 off; with ``gate_fan_in`` the
+    weights at a trained model's scale, ``lm_fan_in_scale``, else at the
+    init's): ``gate_requests`` prompts of the bf16 run served on
+    ``gate_slots`` slots, every served token equal to the teacher-forced
+    argmax wherever its top-2 gap exceeds ``LM_TIE_GAP`` (for a recurrent
+    family the teacher starts from each request's admission state, and the
+    tokens that differ from the zero-state forward are printed beside),
+    then ``lm_batch_gate``. Fails on any check."""
+    from repro_torch.models.api import build_model
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3969,15 +4220,22 @@ def phase_lm_serve(args, torch, elapsed_s=0.0):
     try:
         cfg32 = cfg.scaled(param_dtype="float32", compute_dtype="float32")
         model = build_model(cfg32)
-        params = model.init(torch.Generator(dev).manual_seed(args.seed))
-        gp = prompts[:LM_SERVE["gate_requests"]]
-        eng = lm_engine(torch, model, params, LM_SERVE["gate_slots"], blocks)
+        params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+        if spec["gate_fan_in"]:
+            lm_fan_in_scale(params)
+        gp = prompts[:spec["gate_requests"]]
+        eng = lm_engine(torch, model, params, spec["gate_slots"],
+                        lm_kv_blocks(spec), spec)
+        starts = lm_snapshot_starts(torch, eng, gp) \
+            if cfg.family in ("ssm", "hybrid") else None
         marks.append(time.perf_counter())
-        res = eng.run(gp, max_new=LM_SERVE["gate_new"])
+        res = eng.run(gp, max_new=spec["gate_new"])
         marks.append(time.perf_counter())
-        served = lm_agreement(torch, cfg32, params, gp, res)
+        served = lm_agreement(torch, cfg32, params, gp, res, starts)
+        zero = None if starts is None else \
+            lm_agreement(torch, cfg32, params, gp, res)
         marks.append(time.perf_counter())
-        batch = lm_batch_gate(torch, model, params, gp)
+        batch = lm_batch_gate(torch, model, params, gp, spec)
         marks.append(time.perf_counter())
         peak32 = torch.cuda.max_memory_allocated()
     finally:
@@ -3991,23 +4249,468 @@ def phase_lm_serve(args, torch, elapsed_s=0.0):
                      f"from the oracle where its top-2 gap > {LM_TIE_GAP}")
     if batch["outside_tol"]:
         fails.append(f"prefill/decode logits outside {LM_GATE_TOL}")
-    say("lm_serve_gate", card=card_line(), dtype="float32", tf32=False,
-        requests=len(gp), slots=LM_SERVE["gate_slots"],
-        new_tokens=LM_SERVE["gate_new"],
+    say(f"{tag}_gate", card=card_line(), dtype="float32", tf32=False,
+        weights="1/sqrt(fan-in)" if spec["gate_fan_in"] else "init",
+        requests=len(gp), slots=spec["gate_slots"],
+        new_tokens=spec["gate_new"],
         param_bytes=sum(t.numel() * 4 for t in lm_leaves(params)),
-        served=served, tie_gap=LM_TIE_GAP, batch=batch,
-        decode_step_ms_p50=pct(eng.step_ms, 50),
-        prefill_ms_p50=pct(eng.prefill_ms, 50),
+        served=served, tie_gap=LM_TIE_GAP,
+        served_against_zero_state_forward=zero, batch=batch,
+        decode_step_ms_p50=float(np.percentile(eng.step_ms, 50)),
+        prefill_ms_p50=float(np.percentile(eng.prefill_ms, 50)),
         peak_memory_bytes=peak32,
         seconds_by_part=dict(zip(("init", "run", "teacher", "batch"),
                                  np.diff(marks).tolist())),
-        failed=fails or None,
-        phase_seconds=time.perf_counter() - t_phase)
+        failed=fails or None)
     if fails:
-        raise AssertionError(f"lm_serve_gate: {fails}")
+        raise AssertionError(f"{tag}_gate: {fails}")
     del eng, params, model
-    torch.cuda.empty_cache()
+    free_card(torch)
 
+
+def phase_lm_served(args, torch, spec, tag, elapsed_s=0.0):
+    """``lm_serve`` (internlm2-1.8b), ``lm_ssm`` (mamba2-1.3b) or
+    ``lm_hybrid`` (recurrentgemma-9b) at its published width: the bf16
+    served run (``lm_served_run``; the served tokens against the
+    teacher-forced argmax, from each request's admission state for a
+    recurrent family, printed), 8 profiled decode steps (launches, busy
+    share, the bytes bound: weights, the recurrent state read and written,
+    the attention's valid K/V), then the float32 gate after the bf16 model
+    is freed. Also fails without a RadixKV defrag from
+    ``LM_DEFRAG_REQUESTS`` requests, and, for a model with a window
+    (``lm_hybrid``'s 2,048), unless a prompt passed it (the ring prefill
+    at full width)."""
+    from repro_torch.configs import get_arch
+    t_phase = time.perf_counter()
+    cfg = get_arch(spec["arch"]).CONFIG
+    run = lm_served_run(args, torch, spec, cfg, elapsed_s, tag)
+    eng, fails, line = run["eng"], run["fails"], run["line"]
+    if eng.kv.defrags < 1 and line["requests"] >= LM_DEFRAG_REQUESTS:
+        fails.append(f"RadixKV {line['radix_kv']}: want a defrag")
+    if cfg.window is not None:
+        past = sum(len(p) > cfg.window for p in run["prompts"])
+        line["prompts_past_window"] = past
+        if not past:
+            fails.append(f"no prompt passed the window of {cfg.window}")
+    t0 = time.perf_counter()
+    agree = lm_agreement(torch, cfg, run["params"], run["prompts"],
+                         run["results"], run["starts"])
+    teacher_s = time.perf_counter() - t0
+    state = lm_recurrent_bytes(eng)
+    t0 = time.perf_counter()
+    profile = lm_decode_profile(torch, eng, run["prompts"], cfg,
+                                run["pbytes"], spec)
+    say(tag, **line, teacher_forced=agree,
+        decode_state_bytes_per_slot=state / spec["slots"],
+        decode_profile=profile,
+        seconds_by_part=dict(run=line["seconds"], teacher=teacher_s,
+                             profile=time.perf_counter() - t0),
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"{tag}: {fails}")
+    prompts = run["prompts"]
+    del eng, run
+    free_card(torch)
+    lm_float32_gate(args, torch, spec, cfg, prompts, tag)
+    say(f"{tag}_done", phase_seconds=time.perf_counter() - t_phase)
+
+
+def moe_reference(torch, x, p, cfg):
+    """The MoE layer in float32, expert by expert, on the card, from the
+    bf16 weights of layer 0 (``p``) and a routing of its own on the host
+    (numpy: the k largest router logits, a tie to the lower expert; each
+    expert's pairs ranked in token order, those past the capacity
+    dropped). Returns (y float32 (T, d), the routing: the chosen experts
+    (T, k), then in ``moe_route``'s expert order token, rank, kept,
+    slot)."""
+    from repro_torch.models import layers as L
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = L.moe_capacity(T, k, E, cfg.capacity_factor)
+    logits = x.float() @ p["router"].float()
+    lg = logits.cpu().numpy()
+    gidx = np.argsort(-lg, axis=1, kind="stable")[:, :k]
+    gval = np.take_along_axis(lg, gidx, 1)
+    gates = np.exp(gval - gval.max(1, keepdims=True))
+    gates /= gates.sum(1, keepdims=True)
+    flat_e, flat_t = gidx.reshape(-1), np.repeat(np.arange(T), k)
+    order = np.argsort(flat_e, kind="stable")
+    se, st = flat_e[order], flat_t[order]
+    rank = np.zeros_like(se)
+    seen = np.zeros(E, np.int64)
+    for j, e in enumerate(se):
+        rank[j] = seen[e]
+        seen[e] += 1
+    keep = rank < C
+    slot = np.where(keep, se * C + rank, E * C)
+    g = gates.reshape(-1)[order]
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for e in np.unique(se[keep]):
+        sel = keep & (se == e)
+        tok = torch.as_tensor(st[sel], device=x.device)
+        xe = xf[tok]
+        h = L.silu(xe @ p["we1"][e].float()) * (xe @ p["we3"][e].float())
+        ye = (h @ p["we2"][e].float()) * torch.as_tensor(
+            g[sel], dtype=torch.float32, device=x.device)[:, None]
+        y.index_add_(0, tok, ye)
+    return y, dict(gidx=gidx, token=st, rank=rank, keep=keep, slot=slot)
+
+
+def moe_gate(torch, x, p, cfg, what):
+    """``layers.moe_ffn`` at full width on the served MoE input ``x``
+    (T, d) and layer 0's bf16 weights, against ``moe_reference`` (TF32
+    off): expert choice, ranks and kept slots equal; the layer computed in
+    float32 (its weights cast per einsum, one 22.5 GB temporary at a time)
+    within ``MOE_GATE_TOL`` of the reference's scale; and the layer as
+    served (bf16 products and combine, the JAX package's roundings) within
+    ``MOE_BF16_TOL``, its count outside ``MOE_GATE_TOL`` printed."""
+    from repro_torch.models import layers as L
+    T = x.shape[0]
+    C = L.moe_capacity(T, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            r = L.moe_route(x.float() @ p["router"].float(), cfg.top_k, C)
+            ref, rr = moe_reference(torch, x, p, cfg)
+            want = ref.cpu().numpy()
+            del ref
+            outs = {}
+            for name, dt in (("float32", torch.float32), ("served", cfg.cdt)):
+                y, _ = L.moe_ffn(x[None], p["router"], p["we1"], p["we3"],
+                                 p["we2"], top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 dtype=dt)
+                outs[name] = y[0].float().cpu().numpy()
+                del y
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    same = {k: np.array_equal(r[a].cpu().numpy(), rr[k]) for k, a in (
+        ("gidx", "gidx"), ("token", "stt"), ("rank", "rank"),
+        ("keep", "keep"), ("slot", "slot"))}
+    scale = max(1e-30, float(np.abs(want).max()))
+
+    def outside(got, tol):
+        err = np.abs(got - want)
+        ok = err <= tol["atol"] * scale + tol["rtol"] * np.abs(want)
+        return float(err.max()), int((~ok).sum())
+    e32, o32 = outside(outs["float32"], MOE_GATE_TOL)
+    e16, o16 = outside(outs["served"], MOE_BF16_TOL)
+    return dict(what=what, tokens=T, capacity=C,
+                dropped_pairs=int((~rr["keep"]).sum()), routing_equal=same,
+                scale=scale, float32_max_abs_err=e32, float32_outside_tol=o32,
+                tol=MOE_GATE_TOL, served_dtype=str(cfg.cdt),
+                served_max_abs_err=e16, served_outside_bf16_tol=o16,
+                bf16_tol=MOE_BF16_TOL,
+                served_outside_tol=outside(outs["served"], MOE_GATE_TOL)[1])
+
+
+def moe_stats(torch, calls, cfg):
+    """Per recorded MoE call (its input ``x`` (B, S, d) as served):
+    dropped (token, expert) pairs, expert load (max / mean hits), the
+    balance loss and the distinct experts chosen (each keeps its first
+    pair: C >= 1), from ``moe_route`` on the same router logits."""
+    from repro_torch.models import layers as L
+    out = dict(prefill=[], decode=[])
+    with torch.inference_mode():
+        for x, router in calls:
+            T = x.shape[0] * x.shape[1]
+            C = L.moe_capacity(T, cfg.top_k, cfg.n_experts,
+                               cfg.capacity_factor)
+            logits = x.reshape(T, -1).float() @ router.float()
+            r = L.moe_route(logits, cfg.top_k, C)
+            hits = torch.bincount(r["gidx"].reshape(-1),
+                                  minlength=cfg.n_experts).float()
+            aux = L._load_balance_loss(logits, r["gidx"], cfg.n_experts)
+            out["decode" if x.shape[1] == 1 else "prefill"].append((
+                int((~r["keep"]).sum()), float(hits.max() / hits.mean()),
+                float(aux), T, int((hits > 0).sum())))
+    summary = {}
+    for kind, rows in out.items():
+        if not rows:
+            continue
+        d, load, aux, T, used = (np.array(v) for v in zip(*rows))
+        summary[kind] = dict(calls=len(rows), tokens_mean=float(T.mean()),
+                             dropped_pairs_mean=float(d.mean()),
+                             dropped_pairs_max=int(d.max()),
+                             dropped_share=float(d.sum() /
+                                                 (T.sum() * cfg.top_k)),
+                             expert_load_max_over_mean=float(load.mean()),
+                             aux_loss_mean=float(aux.mean()),
+                             experts_chosen_mean=float(used.mean()))
+    return summary
+
+
+def phase_lm_moe(args, torch, elapsed_s=0.0):
+    """``lm_moe``: kimi-k2 at its published width, 1 layer of 61 (printed
+    under ``reduced``), bf16, served through ``ServeEngine`` (its prefill
+    at batch = slots: the batch's rows share the experts' capacity). Every
+    MoE call's input is kept (``layers.moe_ffn`` wrapped for the run and
+    the profile) and read after it: dropped pairs per prefill and per
+    decode step, expert load, the aux loss. 8 profiled decode steps, their
+    bound from the experts their tokens chose (``moe_stats``: the weights
+    a sparse dispatch must read), the dense dispatch's (every expert read,
+    as ``moe_ffn``'s einsums do) beside it. The gate: the first prefill's
+    and one decode step's MoE inputs through ``moe_ffn`` against
+    ``moe_reference`` (``moe_gate``). No teacher-forced check: a served
+    MoE token depends on the batch around it (the capacity), in the JAX
+    package too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_MOE["arch"]).CONFIG.scaled(layers=LM_MOE["layers"])
+    say("reduced", arch=cfg.arch, layers=cfg.layers,
+        published_layers=get_arch(LM_MOE["arch"]).CONFIG.layers)
+    calls = []
+    served_moe = L.moe_ffn
+
+    def recorded(x, router_w, *a, **kw):
+        calls.append((x.detach(), router_w))
+        return served_moe(x, router_w, *a, **kw)
+    L.moe_ffn = recorded
+    try:
+        run = lm_served_run(args, torch, LM_MOE, cfg, elapsed_s, "lm_moe")
+        eng, fails, line = run["eng"], run["fails"], run["line"]
+        t0 = time.perf_counter()
+        stats = moe_stats(torch, calls, cfg)
+        stats_s = time.perf_counter() - t0
+        first_prefill = next(x for x, _ in calls if x.shape[1] > 1)
+        a_decode = next(x for x, _ in calls if x.shape[1] == 1)
+        calls.clear()
+        t0 = time.perf_counter()
+        profile = lm_decode_profile(torch, eng, run["prompts"], cfg,
+                                    run["pbytes"], LM_MOE)
+        profile_s = time.perf_counter() - t0
+    finally:
+        L.moe_ffn = served_moe
+    layers = run["params"]["layers"]
+    experts = sum(layers[k].numel() * layers[k].element_size()
+                  for k in ("we1", "we2", "we3"))
+    # the profiled steps are the last decode calls (their warm-up steps
+    # admit and prefill first)
+    chosen = moe_stats(torch, [c for c in calls if c[0].shape[1] == 1]
+                       [-LM_PROFILE_STEPS * cfg.layers:], cfg)["decode"]
+    calls.clear()
+    used = chosen["experts_chosen_mean"]
+    sparse = profile["weight_bytes"] - experts * (1 - used / cfg.n_experts)
+    profile.update(
+        dense_dispatch_weight_bytes=profile["weight_bytes"],
+        dense_dispatch_bound_ms=profile["bound_ms"],
+        dense_dispatch_bound_share=profile["bound_share"],
+        experts_chosen_per_step=used, weight_bytes=sparse,
+        bound_ms=(sparse + profile["kv_valid_bytes"]) / HBM_BYTES_PER_S * 1e3)
+    profile["bound_share"] = profile["bound_ms"] / profile["step_ms"]
+    # the gate needs layer 0's router and experts only: the embeddings
+    # (4.7 GB), attention and engine go, so that its float32 layer's
+    # 22.5 GB weight casts fit beside them
+    p0 = {k: layers[k][0] for k in ("router", "we1", "we2", "we3")}
+    del eng, run, layers
+    free_card(torch)
+    t0 = time.perf_counter()
+    gates = [moe_gate(torch, first_prefill.reshape(-1, cfg.d_model), p0, cfg,
+                      "first prefill"),
+             moe_gate(torch, a_decode.reshape(-1, cfg.d_model), p0, cfg,
+                      "a decode step")]
+    gate_s = time.perf_counter() - t0
+    for g in gates:
+        if not all(g["routing_equal"].values()) or \
+                g["float32_outside_tol"] or g["served_outside_bf16_tol"]:
+            fails.append(f"MoE layer against its float32 loop ({g['what']})"
+                         f": routing {g['routing_equal']}, "
+                         f"{g['float32_outside_tol']} float32 and "
+                         f"{g['served_outside_bf16_tol']} served outputs "
+                         "outside their tolerances")
+    say("lm_moe", **line, moe=stats, expert_bytes=experts,
+        experts_read_ms_at_hbm_rate=experts / HBM_BYTES_PER_S * 1e3,
+        gate=gates, decode_profile=profile,
+        seconds_by_part=dict(run=line["seconds"], stats=stats_s,
+                             profile=profile_s, gate=gate_s),
+        failed=fails or None, phase_seconds=time.perf_counter() - t_phase)
+    if fails:
+        raise AssertionError(f"lm_moe: {fails}")
+    del p0, first_prefill, a_decode
+    free_card(torch)
+
+
+def encdec_serve(torch, model, params, frames, prompts, new, smax,
+                 times=None):
+    """Whisper requests as one batch: each request's ``model.prefill`` on
+    its frames and prompt (batch 1, into its row of a batch cache: a view,
+    ``cache_batch_dims``), the encoder's states of all of them
+    (``lm.encode``, once), then ``new - 1`` greedy ``model.decode`` steps
+    at batch ``len(prompts)`` with ``enc_out``, each row at its own
+    position. Returns (tokens (R, new), logits (R, new, V), enc_out)."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import cache_batch_dims, cache_map
+    dev = params["embed"].device
+    R = len(prompts)
+    sync = torch.cuda.synchronize
+    cache = model.init_cache(R, smax, device=dev)
+    dims = cache_batch_dims(model.cfg)
+    first = []
+    for i, prompt in enumerate(prompts):
+        sync()
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(prompt[None], dtype=torch.int32, device=dev)
+        rows = cache_map(lambda c, d: c.narrow(d, i, 1), cache, dims)
+        logits, _ = model.prefill(params, {"tokens": toks,
+                                           "frames": frames[i:i + 1]}, rows)
+        first.append(logits[0])
+        sync()
+        if times is not None:
+            times["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc = lm.encode(model.cfg, params, frames)
+    sync()
+    if times is not None:
+        times["encode_ms"].append((time.perf_counter() - t0) * 1e3)
+    logits = torch.stack(first)
+    pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
+                          device=dev)
+    out = [logits]
+    for j in range(new - 1):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, {"token": nxt, "pos": pos + j,
+                                              "enc_out": enc}, cache)
+        sync()
+        if times is not None:
+            times["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+    logits = torch.stack(out, 1)
+    return torch.argmax(logits, dim=-1).cpu().numpy(), logits, enc
+
+
+def phase_lm_encdec(args, torch, elapsed_s=0.0):
+    """``lm_encdec``: whisper-small at its published width in bf16,
+    ``family_requests`` requests of 1,500 stub frame embeddings (random
+    from the seed) with decoder prompts of 4-64 tokens, served as one
+    batch (``encdec_serve``: a ``model.prefill`` a request, which encodes
+    its frames, then 63 ``model.decode`` steps with ``enc_out``; 64 tokens
+    each). Fails on a token outside the vocabulary, a non-finite logit or
+    a graph kernel launch. Then, at the init's scale, the encoder in
+    float32 against float64 (printed: how far float32 holds this random
+    model). The float32 gate (TF32 off, weights at 1 / sqrt(fan-in):
+    ``lm_fan_in_scale``): ``gate_requests`` of them served the same way,
+    every logit within ``LM_GATE_TOL`` of the train-mode forward over the
+    same tokens on the same ``enc_out``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    spec = LM_ENCDEC
+    cfg = get_arch(spec["arch"]).CONFIG
+    n = family_requests(spec, elapsed_s)
+    rng = np.random.default_rng(args.seed)
+    lo, hi = spec["prompt"]
+    prompts = [rng.integers(0, cfg.vocab, int(s)).astype(np.int32)
+               for s in rng.integers(lo, hi + 1, n)]
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    frames = torch.randn((n, spec["frames"], cfg.d_model), generator=gen,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+    count, pbytes = lm_check_params(torch, cfg, params, "lm_encdec")
+    times = dict(prefill_ms=[], encode_ms=[], step_ms=[])
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits, _ = encdec_serve(torch, model, params, frames.to(cfg.cdt),
+                                   prompts, spec["new"], spec["smax"], times)
+    wall = time.perf_counter() - t0
+    graph_launches = kops.launch_counts()
+    fails = []
+    if toks.shape != (n, spec["new"]) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        fails.append("a request without its tokens, or one outside the "
+                     "vocabulary")
+    nonfinite = int((~torch.isfinite(logits)).sum())
+    if nonfinite:
+        fails.append(f"{nonfinite} non-finite logits")
+    if any(graph_launches.values()):
+        fails.append(f"graph kernels launched: {graph_launches}")
+    pct = (lambda xs, q: float(np.percentile(xs, q)))
+    say("lm_encdec", card=card_line(), arch=cfg.arch, dtype=cfg.param_dtype,
+        enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+        d_model=cfg.d_model, params=count, param_bytes=pbytes, requests=n,
+        frames=spec["frames"], new_tokens=spec["new"],
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        served_tokens=int(toks.size), seconds=wall,
+        tokens_per_s=toks.size / wall,
+        prefill_ms_p50=pct(times["prefill_ms"], 50),
+        prefill_ms_p99=pct(times["prefill_ms"], 99),
+        encode_ms=times["encode_ms"][0], decode_batch=n,
+        decode_step_ms_p50=pct(times["step_ms"], 50),
+        decode_step_ms_p99=pct(times["step_ms"], 99),
+        graph_kernel_launches=graph_launches,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_encdec: {fails}")
+    del logits, params, model
+    free_card(torch)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg32 = cfg.scaled(param_dtype="float32", compute_dtype="float32")
+        model = build_model(cfg32)
+        params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+        with torch.inference_mode():      # the init's scale: f32 vs f64
+            cfg64 = cfg.scaled(param_dtype="float64",
+                               compute_dtype="float64")
+            p64 = {k: ({m: t.double() for m, t in v.items()}
+                       if isinstance(v, dict) else v.double())
+                   for k, v in params.items()}
+            e32 = lm.encode(cfg32, params, frames[:1])
+            e64 = lm.encode(cfg64, p64, frames[:1].double())
+            f64 = dict(max_abs_diff=float((e32.double() - e64).abs().max()),
+                       scale=float(e64.abs().max()))
+            del p64, e32, e64
+        say("encdec_f64", card=card_line(), weights="init scale",
+            encoder_float32_against_float64=f64)
+        lm_fan_in_scale(params)
+        g = min(n, spec["gate_requests"])
+        toks, logits, enc = encdec_serve(torch, model, params, frames[:g],
+                                         prompts[:g], spec["new"],
+                                         spec["smax"])
+        worst = dict(max_abs_err=0.0, outside_tol=0, logits=0)
+        for i in range(g):
+            allt = torch.as_tensor(np.concatenate([prompts[i],
+                                                   toks[i, :-1]]),
+                                   dtype=torch.int32, device="cuda")[None]
+            with torch.inference_mode():
+                h, _, _ = lm.forward(cfg32, params, allt,
+                                     lm.make_positions(cfg32, allt), "train",
+                                     enc_out=enc[i:i + 1])
+                ref = lm._unembed(cfg32, params,
+                                  h[:, len(prompts[i]) - 1:])[0]
+            got, want = logits[i].cpu().numpy(), ref.cpu().numpy()
+            err = np.abs(got - want)
+            ok = err <= LM_GATE_TOL["atol"] + LM_GATE_TOL["rtol"] * \
+                np.abs(want)
+            worst = dict(max_abs_err=max(worst["max_abs_err"],
+                                         float(err.max())),
+                         outside_tol=worst["outside_tol"] + int((~ok).sum()),
+                         logits=worst["logits"] + ok.size)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    fails = ["decode logits outside the tolerance of the forward"] \
+        if worst["outside_tol"] else []
+    say("lm_encdec_gate", card=card_line(), dtype="float32", tf32=False,
+        weights="1/sqrt(fan-in)", requests=g, **worst, **LM_GATE_TOL,
+        failed=fails or None, phase_seconds=time.perf_counter() - t_phase)
+    if fails:
+        raise AssertionError(f"lm_encdec_gate: {fails}")
+    del params, model, frames, logits, enc
+    free_card(torch)
 
 def main(argv=None):
     t_start = time.perf_counter()
@@ -4017,10 +4720,11 @@ def main(argv=None):
     ap.add_argument("--mixed-ops", type=int, default=1 << 20)
     ap.add_argument("--analytics-edges", type=int, default=1 << 21,
                     help="undirected edges ingested before the analytics")
-    ap.add_argument("--sharded-ops", type=int, default=(1 << 22) + (1 << 20),
+    ap.add_argument("--sharded-ops", type=int, default=SHARDED_OPS,
                     help="ops of the main path's stream the sharded phase "
-                         "applies")
-    ap.add_argument("--lm-requests", type=int, default=32,
+                         "applies (a prefix; the whole stream is "
+                         "5,242,880)")
+    ap.add_argument("--lm-requests", type=int, default=LM_SERVE["requests"],
                     help="requests of the LM serving phase's bf16 run")
     ap.add_argument("--parent", default=None,
                     help="checkout of an earlier commit whose kernel "
@@ -4038,10 +4742,12 @@ def main(argv=None):
     if args.ingest_ops < (1 << 22) or args.mixed_ops < (1 << 20) or \
             args.analytics_edges < (1 << 21) or \
             args.sharded_ops < (1 << 22) + (1 << 20) or \
-            args.lm_requests < 32:
+            args.lm_requests < LM_SERVE["requests"]:
         say("reduced", ingest_ops=args.ingest_ops, mixed_ops=args.mixed_ops,
             analytics_edges=args.analytics_edges,
-            sharded_ops=args.sharded_ops, lm_requests=args.lm_requests)
+            sharded_ops=args.sharded_ops,
+            sharded_stream_ops=(1 << 22) + (1 << 20),
+            lm_requests=args.lm_requests)
 
     t0 = time.perf_counter()
     chase_lib = phase_build()
@@ -4081,7 +4787,14 @@ def main(argv=None):
         line["sharded_service_launches"] = sv_launches[line["name"]]
     kernels.append(art_line)
     phase_parity(torch)
-    phase_lm_serve(args, torch, time.perf_counter() - t_start)
+    phase_lm_served(args, torch, dict(LM_SERVE, requests=args.lm_requests),
+                    "lm_serve", time.perf_counter() - t_start)
+    phase_lm_served(args, torch, LM_SSM, "lm_ssm",
+                    time.perf_counter() - t_start)
+    phase_lm_served(args, torch, LM_HYBRID, "lm_hybrid",
+                    time.perf_counter() - t_start)
+    phase_lm_moe(args, torch, time.perf_counter() - t_start)
+    phase_lm_encdec(args, torch, time.perf_counter() - t_start)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

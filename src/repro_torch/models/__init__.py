@@ -1,4 +1,5 @@
-"""The LM models of the port (``dense`` and ``vlm`` families)."""
+"""The LM models of the port: every family of ``repro.models`` (dense,
+vlm, moe, ssm, hybrid, encdec)."""
 from .api import Model, build_model, param_counts
 from .config import ModelConfig
 

@@ -1,17 +1,17 @@
-"""LM assembly of the port for the ``dense`` and ``vlm`` families
-(counterpart of ``repro.models.lm``).
+"""LM assembly of the port for every family: dense / vlm / moe / ssm /
+hybrid / encdec (counterpart of ``repro.models.lm``).
 
 * params are plain dicts; per-layer tensors are stacked on a leading L
-  dim, as in the JAX package, and the layers run as a Python loop over
-  that dim (no remat: the port serves, it does not train yet);
+  dim (the hybrid family's on (groups, per unit)), as in the JAX package,
+  and the layers run as a Python loop over that dim (no remat: the port
+  serves, it does not train yet);
 * a parallel *logical spec* tree is returned beside the params;
 * three entry modes share the block code: 'train' (no cache), 'prefill'
   (build the cache), 'decode' (one token against the cache). The cache
-  ``(k, v, cache_len)`` with leaves ``(L, B, ...)`` is updated in place
-  and returned: the JAX engine donates it to its decode.
-
-The other families wait for their slices (ROADMAP Queue 1 item 4) and
-raise ``NotImplementedError``.
+  tree (``models.api._cache_struct``) is updated in place, every leaf
+  (K/V rows, cache lengths, SSM states, conv tails) written into the
+  views it was given, and returned: the JAX engine donates it to its
+  decode, and the port's engine serves a slot from views of its rows.
 """
 from __future__ import annotations
 
@@ -20,17 +20,18 @@ from typing import Any, Dict, Tuple
 import torch
 
 from . import layers as L
+from . import rglru as RG
+from . import ssm as SSM
 from .config import ModelConfig
 
-PORTED_FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# leaves that are float32 whatever ``param_dtype`` says (as in the JAX init)
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias", "lam")
 
 
 def check_family(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) is not ported to "
-            "repro_torch yet: ROADMAP.md Queue 1 item 4 (the LM stack) "
-            "queues moe, ssm / hybrid and encdec after dense and vlm")
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def constrain(x, *axes):
@@ -47,19 +48,44 @@ def init_params(cfg: ModelConfig, generator=None,
                 device=None) -> Tuple[Dict, Dict]:
     """Returns (params, logical_specs), parallel dicts. Draws from
     ``generator`` on its device; with ``generator=None`` (only for
-    ``device="meta"``) the shapes alone. Every leaf is in ``cfg.pdt``."""
+    ``device="meta"``) the shapes alone. Every leaf is in ``cfg.pdt`` but
+    ``FLOAT32_LEAVES``; the hybrid family's leaves are drawn stacked over
+    (groups x per unit) layers, then reshaped to (groups, per unit, ...)."""
     check_family(cfg)
     if generator is not None:
         device = generator.device
     dt = cfg.pdt
     d, f, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.hd
     Hq, Hkv = cfg.n_heads, cfg.kv_heads
+    f32 = torch.float32
 
-    def dense(shp, spec, scale=None):
-        return L.dense_init(generator, shp, dt, spec, scale, device)
+    def dense(shp, spec, scale=None, dtype=dt):
+        return L.dense_init(generator, shp, dtype, spec, scale, device)
 
-    def const(shp, value, spec):
-        return torch.full(shp, value, dtype=dt, device=device), spec
+    def const(shp, value, spec, dtype=dt):
+        return torch.full(shp, value, dtype=dtype, device=device), spec
+
+    def attn_block(Lc):
+        p = {
+            "ln1": const((Lc, d), 1.0, ("layers", "embed")),
+            "wq": dense((Lc, d, Hq * hd), ("layers", "fsdp", "tp")),
+            "wk": dense((Lc, d, Hkv * hd), ("layers", "fsdp", "kv_tp")),
+            "wv": dense((Lc, d, Hkv * hd), ("layers", "fsdp", "kv_tp")),
+            "wo": dense((Lc, Hq * hd, d), ("layers", "tp", "fsdp")),
+        }
+        if cfg.qkv_bias:
+            p["bq"] = const((Lc, Hq * hd), 0.0, ("layers", "tp"))
+            p["bk"] = const((Lc, Hkv * hd), 0.0, ("layers", "kv_tp"))
+            p["bv"] = const((Lc, Hkv * hd), 0.0, ("layers", "kv_tp"))
+        return p
+
+    def mlp_block(Lc, ff=f):
+        p = {"ln2": const((Lc, d), 1.0, ("layers", "embed")),
+             "w1": dense((Lc, d, ff), ("layers", "fsdp", "tp"))}
+        if cfg.act == "swiglu":
+            p["w3"] = dense((Lc, d, ff), ("layers", "fsdp", "tp"))
+        p["w2"] = dense((Lc, ff, d), ("layers", "tp", "fsdp"))
+        return p
 
     tree: Dict[str, Any] = {
         "embed": dense((V, d), ("vocab", "fsdp"), scale=0.02),
@@ -69,23 +95,76 @@ def init_params(cfg: ModelConfig, generator=None,
         tree["lm_head"] = dense((d, V), ("fsdp", "vocab"))
 
     Lc = cfg.layers
-    attn = {
-        "ln1": const((Lc, d), 1.0, ("layers", "embed")),
-        "wq": dense((Lc, d, Hq * hd), ("layers", "fsdp", "tp")),
-        "wk": dense((Lc, d, Hkv * hd), ("layers", "fsdp", "kv_tp")),
-        "wv": dense((Lc, d, Hkv * hd), ("layers", "fsdp", "kv_tp")),
-        "wo": dense((Lc, Hq * hd, d), ("layers", "tp", "fsdp")),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = const((Lc, Hq * hd), 0.0, ("layers", "tp"))
-        attn["bk"] = const((Lc, Hkv * hd), 0.0, ("layers", "kv_tp"))
-        attn["bv"] = const((Lc, Hkv * hd), 0.0, ("layers", "kv_tp"))
-    mlp = {"ln2": const((Lc, d), 1.0, ("layers", "embed")),
-           "w1": dense((Lc, d, f), ("layers", "fsdp", "tp"))}
-    if cfg.act == "swiglu":
-        mlp["w3"] = dense((Lc, d, f), ("layers", "fsdp", "tp"))
-    mlp["w2"] = dense((Lc, f, d), ("layers", "tp", "fsdp"))
-    tree["layers"] = {**attn, **mlp}
+    if cfg.family in ("dense", "vlm"):
+        tree["layers"] = {**attn_block(Lc), **mlp_block(Lc)}
+    elif cfg.family == "moe":
+        E = cfg.n_experts
+        tree["layers"] = {
+            **attn_block(Lc),
+            "ln2": const((Lc, d), 1.0, ("layers", "embed")),
+            "router": dense((Lc, d, E), ("layers", "embed", None),
+                            dtype=f32),
+            "we1": dense((Lc, E, d, f), ("layers", "experts", "fsdp", "tp")),
+            "we3": dense((Lc, E, d, f), ("layers", "experts", "fsdp", "tp")),
+            "we2": dense((Lc, E, f, d), ("layers", "experts", "tp", "fsdp")),
+        }
+    elif cfg.family == "ssm":
+        din = cfg.ssm_expand * d
+        N = cfg.ssm_state
+        H = cfg.ssm_heads or (din // cfg.ssm_head_dim)
+        conv_dim = din + 2 * N
+        dproj = 2 * din + 2 * N + H
+        tree["layers"] = {
+            "ln": const((Lc, d), 1.0, ("layers", "embed")),
+            "in_proj": dense((Lc, d, dproj), ("layers", "fsdp", "tp")),
+            "conv_w": dense((Lc, cfg.conv_width, conv_dim),
+                            ("layers", None, "tp"), scale=0.5),
+            "A_log": const((Lc, H), 0.0, ("layers", "heads"), f32),
+            "D": const((Lc, H), 1.0, ("layers", "heads"), f32),
+            "dt_bias": const((Lc, H), 0.0, ("layers", "heads"), f32),
+            "gnorm": const((Lc, din), 1.0, ("layers", "tp")),
+            "out_proj": dense((Lc, din, d), ("layers", "tp", "fsdp")),
+        }
+    elif cfg.family == "hybrid":
+        unit = len(cfg.pattern)
+        groups = cfg.layers // unit
+        rest = cfg.layers - groups * unit
+        Dr = cfg.lru_width or d
+        rec_per_unit = sum(1 for t in cfg.pattern if t == "rec")
+        att_per_unit = unit - rec_per_unit
+
+        def rec_block(n):
+            return {
+                "ln": const((n, d), 1.0, ("layers", "embed")),
+                "wx": dense((n, d, Dr), ("layers", "fsdp", "tp")),
+                "wg": dense((n, d, Dr), ("layers", "fsdp", "tp")),
+                "conv_w": dense((n, cfg.conv_width, Dr),
+                                ("layers", None, "tp"), scale=0.5),
+                "wr": dense((n, Dr, Dr), ("layers", "tp_in", "tp")),
+                "wi": dense((n, Dr, Dr), ("layers", "tp_in", "tp")),
+                "lam": const((n, Dr), 0.5, ("layers", "tp"), f32),
+                "wo": dense((n, Dr, d), ("layers", "tp", "fsdp")),
+            }
+
+        def grouped(block, per):
+            return {k: (v.reshape((groups, per) + v.shape[1:]),
+                        ("layers", "unit") + s[1:])
+                    for k, (v, s) in block(groups * per).items()}
+
+        tree["groups"] = {
+            "rec": grouped(rec_block, rec_per_unit),
+            "attn": grouped(attn_block, att_per_unit),
+            "mlp": grouped(mlp_block, unit),
+        }
+        if rest:
+            tree["tail"] = {"rec": rec_block(rest), "mlp": mlp_block(rest)}
+    else:   # encdec
+        tree["enc_layers"] = {**attn_block(cfg.enc_layers),
+                              **mlp_block(cfg.enc_layers)}
+        dec = attn_block(cfg.dec_layers)
+        cross = {f"x{k}": v for k, v in attn_block(cfg.dec_layers).items()}
+        tree["dec_layers"] = {**dec, **cross, **mlp_block(cfg.dec_layers)}
+        tree["enc_final_ln"] = const((d,), 1.0, ("embed",))
     return L.split_tree(tree)
 
 
@@ -179,6 +258,83 @@ def mlp_apply(cfg, p, x):
     return L.gelu_mlp(h, p["w1"], p["w2"]).to(x.dtype)
 
 
+def moe_apply(cfg, p, x):
+    """The MoE FFN of a layer through ``layers.moe_ffn`` (the JAX
+    package's dense dispatch). Its all-to-all dispatch over an expert
+    mesh (``repro.models.moe_a2a``) needs a mesh context the port does not
+    have yet: ROADMAP Queue 1 item 4, with ``dist/sharding.py``."""
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    y, aux = L.moe_ffn(h, p["router"], p["we1"], p["we3"], p["we2"],
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       dtype=cfg.cdt)
+    return y.to(x.dtype), aux
+
+
+def ssm_apply(cfg, p, x, mode, cache):
+    """Mamba2 block. cache = SSMCache (read, not written) or None; returns
+    (y, new SSMCache or None)."""
+    B, S, d = x.shape
+    din = cfg.ssm_expand * d
+    N = cfg.ssm_state
+    H = cfg.ssm_heads or (din // cfg.ssm_head_dim)
+    P_ = din // H
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = L.mm(h, p["in_proj"])
+    z, xs, Bc, Cc, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
+    conv_in = torch.cat([xs, Bc, Cc], dim=-1)
+    conv_cache = None if cache is None else cache.conv
+    conv_out, new_conv = SSM.causal_conv(conv_in, p["conv_w"], conv_cache)
+    xs, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
+    dt = L.softplus(dt.float() + p["dt_bias"][None, None])
+    A = -torch.exp(p["A_log"].float())
+    xh = xs.reshape(B, S, H, P_)
+    if mode == "decode":
+        y, h_new = SSM.ssd_decode_step(xh[:, 0], dt[:, 0], A, Bc[:, 0],
+                                       Cc[:, 0], p["D"], cache.h)
+        y = y[:, None]
+        new_cache = SSM.SSMCache(h=h_new, conv=new_conv)
+    else:
+        y, h_final = SSM.ssd_chunked(xh, dt, A, Bc, Cc, p["D"],
+                                     chunk=cfg.ssm_chunk)
+        new_cache = SSM.SSMCache(h=h_final, conv=new_conv) \
+            if mode == "prefill" else None
+    y = y.reshape(B, S, din)
+    y = L.rmsnorm(y * L.silu(z), p["gnorm"], cfg.norm_eps)
+    return L.mm(y, p["out_proj"]).to(x.dtype), new_cache
+
+
+def rec_apply(cfg, p, x, mode, cache):
+    """RG-LRU recurrent block. cache = (h, conv) (read, not written) or
+    None; returns (y, new (h, conv) or None)."""
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    u = L.mm(h, p["wx"])
+    g = L.gelu(L.mm(h, p["wg"]))
+    conv_cache = None if cache is None else cache[1]
+    u, new_conv = SSM.causal_conv(u, p["conv_w"], conv_cache)
+    r = L.mm(u, p["wr"])
+    i = L.mm(u, p["wi"])
+    if mode == "decode":
+        y, h_new = RG.rglru_step(u[:, 0], r[:, 0], i[:, 0], p["lam"],
+                                 cache[0])
+        y = y[:, None]
+        new_cache = (h_new, new_conv)
+    else:
+        y, h_last = RG.rglru_scan(u, r, i, p["lam"])
+        new_cache = (h_last, new_conv) if mode == "prefill" else None
+    return L.mm(y * g, p["wo"]).to(x.dtype), new_cache
+
+
+def _store(views, new):
+    """Write a block's new cache leaves into the cache views it read."""
+    for v, n in zip(views, new):
+        v.copy_(n)
+
+
+def _at(stacked, *idx):
+    """The params of one layer: ``stacked[k][idx]`` for every leaf."""
+    return {k: v[idx] for k, v in stacked.items()}
+
+
 # ---------------------------------------------------------------------------
 # model application
 # ---------------------------------------------------------------------------
@@ -194,22 +350,124 @@ def _unembed(cfg, params, h):
     return (h @ w.to(h.dtype)).float()
 
 
-def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None):
+def _attn_layer(cfg, p, x, pos, mode, cache, idx, window, causal=True):
+    """``attn_apply`` on the views ``cache[j][idx]``; k and v are written
+    in place, the cache length here."""
+    c = None if cache is None else tuple(t[idx] for t in cache)
+    a, nc = attn_apply(cfg, p, x, pos, mode, c, causal=causal, window=window)
+    if nc is not None:
+        cache[2][idx] = nc[2]
+    return a
+
+
+def _rec_layer(cfg, p, x, mode, cache, idx):
+    """``rec_apply`` on the views ``(h[idx], conv[idx])``, its new state
+    copied into them."""
+    c = None if cache is None else (cache[0][idx], cache[1][idx])
+    y, nc = rec_apply(cfg, p, x, mode, c)
+    if nc is not None:
+        _store(c, nc)
+    return y
+
+
+def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
+            enc_out=None):
     """Shared trunk -> final hidden states (B, S, d). Returns
-    (h, new_cache, aux); ``aux`` (the MoE balance loss) is 0 here."""
+    (h, cache, aux): ``cache`` updated in place (None in 'train'), ``aux``
+    the MoE balance loss averaged over layers (0 for the other families).
+    ``enc_out`` (B, S_enc, d): the encoder's states, for ``encdec``."""
     check_family(cfg)
     x = _embed(cfg, params, tokens)
-    stacked = params["layers"]
-    for i in range(cfg.layers):
-        p = {k: v[i] for k, v in stacked.items()}
-        c = None if cache is None else tuple(t[i] for t in cache)
-        a, nc = attn_apply(cfg, p, x, pos, mode, c, causal=True,
-                           window=cfg.window)
-        if nc is not None:
-            cache[2][i] = nc[2]          # k and v were written in place
-        x = constrain(x + a, "batch", "act_seq", None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        stacked = params["layers"]
+        for i in range(cfg.layers):
+            p = _at(stacked, i)
+            a = _attn_layer(cfg, p, x, pos, mode, cache, i, cfg.window)
+            x = constrain(x + a, "batch", "act_seq", None)
+            if cfg.family == "moe":
+                m, la = moe_apply(cfg, p, x)
+                aux = aux + la
+            else:
+                m = mlp_apply(cfg, p, x)
+            x = constrain(x + m, "batch", "act_seq", None)
+        return x, cache, aux / max(cfg.layers, 1)
+
+    if cfg.family == "ssm":
+        stacked = params["layers"]
+        for i in range(cfg.layers):
+            c = None if cache is None else SSM.SSMCache(cache.h[i],
+                                                        cache.conv[i])
+            y, nc = ssm_apply(cfg, _at(stacked, i), x, mode, c)
+            if nc is not None:
+                _store(c, nc)
+            x = constrain(x + y, "batch", "act_seq", None)
+        return x, cache, aux
+
+    if cfg.family == "hybrid":
+        unit = len(cfg.pattern)
+        groups = cfg.layers // unit
+        g_cache, t_cache = cache if cache is not None else (None, None)
+        rec_c, att_c = g_cache if g_cache is not None else (None, None)
+        gp = params["groups"]
+        for g in range(groups):
+            ri = ai = 0
+            for j, t in enumerate(cfg.pattern):
+                if t == "rec":
+                    y = _rec_layer(cfg, _at(gp["rec"], g, ri), x, mode,
+                                   rec_c, (g, ri))
+                    ri += 1
+                else:
+                    y = _attn_layer(cfg, _at(gp["attn"], g, ai), x, pos,
+                                    mode, att_c, (g, ai), cfg.window)
+                    ai += 1
+                x = x + y
+                x = x + mlp_apply(cfg, _at(gp["mlp"], g, j), x)
+                x = constrain(x, "batch", "act_seq", None)
+        if "tail" in params:
+            tp = params["tail"]
+            for j in range(cfg.layers - groups * unit):
+                x = x + _rec_layer(cfg, _at(tp["rec"], j), x, mode, t_cache,
+                                   j)
+                x = x + mlp_apply(cfg, _at(tp["mlp"], j), x)
+        return x, cache, aux
+
+    # encdec: tokens are the decoder's; enc_out the encoder's states
+    stacked = params["dec_layers"]
+    for i in range(cfg.dec_layers):
+        p = _at(stacked, i)
+        self_p = {k: p[k] for k in ("ln1", "wq", "wk", "wv", "wo") if k in p}
+        x = x + _attn_layer(cfg, self_p, x, pos, mode, cache, i, None)
+        x = x + _cross_attn(cfg, {k[1:]: v for k, v in p.items()
+                                  if k.startswith("x")}, x, enc_out)
         x = constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
+
+
+def _cross_attn(cfg, p, x, enc_out):
+    B, S = x.shape[:2]
+    Se = enc_out.shape[1]
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q = L.mm(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = L.mm(enc_out, p["wk"]).reshape(B, Se, cfg.kv_heads, cfg.hd)
+    v = L.mm(enc_out, p["wv"]).reshape(B, Se, cfg.kv_heads, cfg.hd)
+    o = L.flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    return L.mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"]).to(x.dtype)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """Whisper encoder over stub frame embeddings (B, S, d)."""
+    x = frames.to(cfg.cdt)
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    stacked = params["enc_layers"]
+    for i in range(cfg.enc_layers):
+        p = _at(stacked, i)
+        a, _ = attn_apply(cfg, p, x, pos, "train", None, causal=False)
+        x = x + a
+        x = constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
+    return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
 def make_positions(cfg, tokens):

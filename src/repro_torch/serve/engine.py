@@ -9,12 +9,22 @@ Finished slots are recycled at RadixKV defrag epochs. Greedy sampling
 
 Admission, the LIFO ``free_slots.pop()``, the step order (``active`` in
 insertion order), the finish rules and the dead-lock stop are the JAX
-engine's. One difference, on purpose: the JAX engine prefills at batch =
-``slots`` and keeps the target row (the whole cache when no request is
-active, so idle rows' ``cache_len`` becomes the prompt's length); this
-one prefills the request's row alone (batch 1), in place in its slot.
-Rows are independent, so every answer is the same at 1/``slots`` of the
-work; only idle rows differ.
+engine's. So is what a prefill leaves in the cache. The JAX engine
+prefills at batch = ``slots`` (the prompt in the request's row, token 0
+in the others) and keeps the request's row, or every row when no request
+is active. This one does the same where it shows: with no request active
+it prefills every row in place (a recurrent family's next prefill in an
+idle slot reads that row's conv tail), and for ``moe``, whose expert
+capacity the batch's rows share, it prefills at batch = ``slots`` on a
+copy of the cache and keeps the request's row. Otherwise it prefills the
+request's row alone (batch 1) in place in its slot: rows are independent,
+so the answer and the row are the same at 1/``slots`` of the work. The
+slot's rows are views found from the family's cache layout
+(``models.api.cache_batch_dims``), never from sizes.
+
+``encdec`` is not served here, as the JAX engine cannot serve it (its
+prefill takes no ``frames``): it runs through ``model.prefill`` /
+``model.decode`` with ``frames`` / ``enc_out``.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.api import cache_batch_dims, cache_map
 from .radix_kv import RadixKVManager
 
 
@@ -45,6 +56,10 @@ class ServeEngine:
                  eos_id: Optional[int] = None):
         self.model = model
         self.cfg = model.cfg
+        if self.cfg.family == "encdec":
+            raise ValueError("the engine serves no encdec model: run it "
+                             "through model.prefill / model.decode with "
+                             "frames / enc_out")
         self.params = params
         self.device = params["embed"].device
         self.slots = slots
@@ -55,18 +70,40 @@ class ServeEngine:
         self.cache = model.init_cache(slots, smax, device=self.device)
         self.free_slots = list(range(slots))
         self.active: Dict[int, Request] = {}
+        self._dims = cache_batch_dims(self.cfg)
+        self._shared_rows = self.cfg.family == "moe"
         self._prefill = model.prefill
         self._decode = model.decode
 
+    def _rows(self, cache, slot: int):
+        """Views of ``slot``'s rows of every leaf of ``cache``."""
+        return cache_map(lambda c, d: c.narrow(d, slot, 1), cache,
+                         self._dims)
+
     def _prefill_into_slot(self, req: Request):
-        """The prompt through ``prefill`` at batch 1, written in place into
-        ``req.slot``'s rows of the cache."""
-        toks = torch.as_tensor(req.prompt[None], dtype=torch.int32,
-                               device=self.device)
-        rows = tuple(c[:, req.slot:req.slot + 1] for c in self.cache)
-        logits, _ = self._prefill(self.params, {"tokens": toks}, rows)
+        """The prompt through ``prefill`` into ``req.slot``'s rows of the
+        cache, as the JAX engine's batch-``slots`` prefill leaves them (see
+        the module's docstring)."""
+        if self.active and not self._shared_rows:
+            toks = torch.as_tensor(req.prompt[None], dtype=torch.int32,
+                                   device=self.device)
+            logits, _ = self._prefill(self.params, {"tokens": toks},
+                                      self._rows(self.cache, req.slot))
+            row = 0
+        else:
+            toks = np.zeros((self.slots, len(req.prompt)), np.int32)
+            toks[req.slot] = req.prompt
+            toks = torch.from_numpy(toks).to(self.device)
+            cache = cache_map(torch.clone, self.cache) if self.active \
+                else self.cache
+            logits, _ = self._prefill(self.params, {"tokens": toks}, cache)
+            if self.active:
+                cache_map(lambda old, new: old.copy_(new),
+                          self._rows(self.cache, req.slot),
+                          self._rows(cache, req.slot))
+            row = req.slot
         req.pos = len(req.prompt)
-        req.out = [int(torch.argmax(logits[0]))]
+        req.out = [int(torch.argmax(logits[row]))]
 
     def submit(self, prompt, max_new=16) -> Optional[int]:
         if not self.free_slots:

@@ -8,11 +8,14 @@ one, for the ring cache) the train-mode forward, the prefill logits and
 every cache leaf, and 3 decode steps, within 1e-5 in float32 (rtol and
 atol, ``atol`` on each tensor's scale: ``close``); one arch in bfloat16
 at rtol 2e-2 (the JAX suite's ``test_prefill_decode_matches_forward``)
-and atol 2e-2 of the scale (``BF16_TOL``). Configs field for field,
-parameter counts, logical specs and cache shapes.
+and atol 2e-2 of the scale (``BF16_TOL``). For all ten archs: configs
+field for field, parameter counts (total and MoE-active), the init's
+shapes, dtypes and logical specs, and cache shapes. The other families'
+models: ``tests/test_torch_lm_families.py``.
 """
 import contextlib
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -38,10 +41,10 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # (0.0156), and a float32 op that lands on the other side of a bfloat16
 # rounding boundary in one package moves a logit by 1-2 such ulps
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
-PORTED = [a for a in tconfigs.ARCH_IDS
-          if tconfigs.get_arch(a).CONFIG.family in ("dense", "vlm")]
-# the ported SMOKE configs, plus a windowed dense one (the ring cache)
-SMOKES = [(a, None) for a in PORTED] + [("internlm2-1.8b", 8)]
+DENSE = [a for a in tconfigs.ARCH_IDS
+         if tconfigs.get_arch(a).CONFIG.family in ("dense", "vlm")]
+# the dense / vlm SMOKE configs, plus a windowed one (the ring cache)
+SMOKES = [(a, None) for a in DENSE] + [("internlm2-1.8b", 8)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -149,46 +152,72 @@ def test_decode_attention(rng, window):
 # whole models
 # ---------------------------------------------------------------------------
 
-def run_both(jcfg, tcfg, jp, tp, toks, steps=3, smax=32, tol=F32_TOL):
+def run_both(jcfg, tcfg, jp, tp, toks, steps=3, smax=32, tol=F32_TOL,
+             frames=None):
     """Train-mode forward, prefill (logits and every cache leaf) and
     ``steps`` decode steps (logits and every cache leaf) of both packages
-    on the same tokens."""
+    on the same tokens (``encdec``: and the same ``frames``, encoded by
+    each package, the decode fed each package's ``enc_out``). The JAX side
+    is jitted in float32 and runs op by op in bfloat16 (see
+    ``test_model_matches_jax_bf16``)."""
     with contextlib.ExitStack() as stack:
         if tcfg.cdt == torch.bfloat16:
             stack.enter_context(jax.disable_jit())
-        _run_both(jcfg, tcfg, jp, tp, toks, steps, smax, tol)
+        _run_both(jcfg, tcfg, jp, tp, toks, steps, smax, tol, frames)
 
 
-def _run_both(jcfg, tcfg, jp, tp, toks, steps, smax, tol):
+def _run_both(jcfg, tcfg, jp, tp, toks, steps, smax, tol, frames):
     B, S = toks.shape
     jm, tm = japi.build_model(jcfg), tapi.build_model(tcfg)
+    jit = jax.jit if tcfg.cdt == torch.float32 else (lambda f: f)
     tt = torch.from_numpy(toks)
-    h, _, _ = jlm.forward(jcfg, jp, jnp.asarray(toks),
-                          jlm.make_positions(jcfg, jnp.asarray(toks)),
-                          "train")
-    th, _, _ = tlm.forward(tcfg, tp, tt, tlm.make_positions(tcfg, tt),
-                           "train")
-    close(tlm._unembed(tcfg, tp, th), jlm._unembed(jcfg, jp, h), tol,
-          "train-mode logits")
+    jb, tb, jenc, tenc = {}, {}, None, None
+    if frames is not None:
+        jb["frames"], tb["frames"] = jnp.asarray(frames), \
+            torch.from_numpy(frames)
+        jenc = jit(lambda p, f: jlm.encode(jcfg, p, f))(jp, jb["frames"])
+        tenc = tlm.encode(tcfg, tp, tb["frames"])
+        close(tenc, jenc, tol, "encoder states")
+
+    def jtrain(p, t, e):
+        h, _, aux = jlm.forward(jcfg, p, t, jlm.make_positions(jcfg, t),
+                                "train", enc_out=e)
+        return jlm._unembed(jcfg, p, h), aux
+    jlogits, jaux = jit(jtrain)(jp, jnp.asarray(toks), jenc)
+    th, _, taux = tlm.forward(tcfg, tp, tt, tlm.make_positions(tcfg, tt),
+                              "train", enc_out=tenc)
+    close(tlm._unembed(tcfg, tp, th), jlogits, tol, "train-mode logits")
+    close(taux, jaux, tol, "aux loss")
+    jprefill, jdecode = jit(jm.prefill), jit(jm.decode)
     jc = jm.init_cache(B, smax)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks), **jb}, jc)
     tc = tm.init_cache(B, smax, device="cpu")
-    tl, tc = tm.prefill(tp, {"tokens": tt}, tc)
+    tl, tc = tm.prefill(tp, {"tokens": tt, **tb}, tc)
     close(tl, jl, tol, "prefill logits")
-    for i, (a, b) in enumerate(zip(tc, jc)):
-        assert a.shape == b.shape
-        close(a, b.astype(jnp.float32), tol, f"prefill cache leaf {i}")
+    check_cache(tc, jc, tol, "prefill")
     nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     for s in range(steps):
         pos = np.full((B,), S + s, np.int32)
-        jl, jc = jm.decode(jp, {"token": jnp.asarray(nxt),
-                                "pos": jnp.asarray(pos)}, jc)
-        tl, tc = tm.decode(tp, {"token": torch.from_numpy(nxt),
-                                "pos": torch.from_numpy(pos)}, tc)
+        jd = {"token": jnp.asarray(nxt), "pos": jnp.asarray(pos)}
+        td = {"token": torch.from_numpy(nxt), "pos": torch.from_numpy(pos)}
+        if frames is not None:
+            jd["enc_out"], td["enc_out"] = jenc, tenc
+        jl, jc = jdecode(jp, jd, jc)
+        tl, tc = tm.decode(tp, td, tc)
         close(tl, jl, tol, f"decode {s} logits")
-        for i, (a, b) in enumerate(zip(tc, jc)):
-            close(a, b.astype(jnp.float32), tol, f"decode {s} cache leaf {i}")
+        check_cache(tc, jc, tol, f"decode {s}")
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+def check_cache(tc, jc, tol, what):
+    """Every leaf of the port's cache tree against the JAX one's: shape,
+    dtype and values."""
+    tl, jl = tapi.cache_leaves(tc), jax.tree.leaves(jc)
+    assert len(tl) == len(jl), what
+    for i, (a, b) in enumerate(zip(tl, jl)):
+        assert tuple(a.shape) == b.shape, (what, i)
+        assert str(a.dtype).split(".")[1] == str(b.dtype), (what, i)
+        close(a, b.astype(jnp.float32), tol, f"{what} cache leaf {i}")
 
 
 @pytest.mark.parametrize("arch,window", SMOKES)
@@ -235,10 +264,16 @@ def test_params_round_trip_bf16():
 
 
 def test_port_init_shapes_specs_and_dtypes():
-    """The port's own init: every leaf of the JAX init's shape, in the
-    config's param dtype, and the same logical specs."""
-    for arch in PORTED:
+    """The port's own init, every arch's SMOKE in float32 and in bfloat16:
+    every leaf of the JAX init's shape, in the config's param dtype but
+    the leaves the JAX init makes float32 whatever the config says
+    (router, A_log, D, dt_bias, lam), and the same logical specs; the
+    same generator gives the same tree."""
+    for arch, dtype in itertools.product(tconfigs.ARCH_IDS,
+                                         ("float32", "bfloat16")):
         jcfg, tcfg = configs(arch)
+        jcfg, tcfg = jcfg.scaled(param_dtype=dtype), \
+            tcfg.scaled(param_dtype=dtype)
         jm, tm = japi.build_model(jcfg), tapi.build_model(tcfg)
         tp = tm.init(0, device="cpu")
         jshapes = japi.shapes_and_logical(jcfg)[0]
@@ -249,7 +284,11 @@ def test_port_init_shapes_specs_and_dtypes():
         for path, leaf in flat_j:
             t = flat_t[jax.tree_util.keystr(path)]
             assert tuple(t.shape) == leaf.shape, (arch, path)
-            assert t.dtype == tcfg.pdt
+            f32 = path[-1].key in tlm.FLOAT32_LEAVES
+            assert t.dtype == (torch.float32 if f32 else tcfg.pdt), \
+                (arch, path)
+            if f32:
+                assert leaf.dtype == jnp.float32, (arch, path)
         assert tm.logical_specs == jm.logical_specs
         again = tm.init(torch.Generator().manual_seed(0))
         assert all(torch.equal(a, b) for a, b in zip(
@@ -258,27 +297,47 @@ def test_port_init_shapes_specs_and_dtypes():
 
 def test_param_counts():
     published = {"qwen2.5-3b": 3.09, "phi3-mini-3.8b": 3.82,
-                 "deepseek-coder-33b": 33.3}
-    for arch in PORTED:
-        cfg = tconfigs.get_config(arch)
-        assert tapi.param_counts(cfg) == japi.param_counts(
-            jconfigs.get_config(arch)), arch
+                 "deepseek-coder-33b": 33.3, "mamba2-1.3b": 1.34,
+                 "kimi-k2-1t-a32b": 1041.0}
+    for arch in tconfigs.ARCH_IDS:
+        for name in ("CONFIG", "SMOKE"):
+            tcfg = getattr(tconfigs.get_arch(arch), name)
+            jcfg = getattr(jconfigs.get_arch(arch), name)
+            assert tapi.param_counts(tcfg) == japi.param_counts(jcfg), \
+                (arch, name)
         if arch in published:
-            assert tapi.param_counts(cfg)[0] / 1e9 == pytest.approx(
-                published[arch], rel=0.02), arch
+            assert tapi.param_counts(tconfigs.get_config(arch))[0] / 1e9 == \
+                pytest.approx(published[arch], rel=0.02), arch
+    assert tapi.param_counts(tconfigs.get_config("kimi-k2-1t-a32b")) == \
+        (1_041_166_988_288, 31_061_144_576)
 
 
 def test_init_cache_matches_cache_specs():
-    for arch, window in SMOKES:
+    cases = SMOKES + [(a, None) for a in tconfigs.ARCH_IDS if a not in DENSE]
+    for arch, window in cases:
         jcfg, tcfg = configs(arch, window)
         for B, smax in ((3, 16), (1, 40)):
-            spec = japi.cache_specs(jcfg, B, smax)
-            got = tapi.build_model(tcfg).init_cache(B, smax, device="cpu")
-            assert len(got) == len(spec)
+            spec = jax.tree.leaves(japi.cache_specs(jcfg, B, smax))
+            got = tapi.cache_leaves(tapi.build_model(tcfg).init_cache(
+                B, smax, device="cpu"))
+            assert len(got) == len(spec), arch
             for t, s in zip(got, spec):
-                assert tuple(t.shape) == s.shape
+                assert tuple(t.shape) == s.shape, arch
                 assert str(t.dtype).split(".")[1] == str(s.dtype)
                 assert not t.any()
+
+
+def test_cache_batch_dims():
+    """Each cache leaf's batch dim, from the family's layout, is the dim
+    that has the batch size (checked at a batch unlike every other dim)."""
+    for arch in tconfigs.ARCH_IDS:
+        cfg = tconfigs.get_arch(arch).SMOKE
+        cache = tapi.build_model(cfg).init_cache(7, 24, device="cpu")
+        dims = tapi.cache_leaves(tapi.cache_map(
+            lambda c, d: torch.tensor(d), cache, tapi.cache_batch_dims(cfg)))
+        for t, d in zip(tapi.cache_leaves(cache), dims):
+            assert t.shape[int(d)] == 7 and list(t.shape).count(7) == 1, \
+                arch
 
 
 def test_configs_equal_field_for_field():
@@ -298,13 +357,3 @@ def test_configs_equal_field_for_field():
                 assert getattr(a, f) == getattr(b, f), (arch, name, f)
             assert (a.hd, str(a.pdt), str(a.cdt)) == \
                 (b.hd, str(b.pdt).split(".")[1], str(b.cdt).split(".")[1])
-
-
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCH_IDS
-                                  if a not in PORTED])
-def test_other_families_raise(arch):
-    cfg = tconfigs.get_arch(arch).SMOKE
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tapi.build_model(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        tapi.param_counts(cfg)

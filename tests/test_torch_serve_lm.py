@@ -9,9 +9,9 @@
   with a pool small enough to force defrags, admission overflows, slot
   reuse and an idle slot whose ``cache_len`` runs past ``smax`` (its
   decode writes are dropped): equal results and RadixKV statistics, and
-  before every step the active slots' cache rows within 1e-5. The JAX
-  engine prefills at batch = ``slots`` and the port at batch 1, so idle
-  rows differ (ROADMAP Queue 3) and are not compared;
+  before every step the active slots' cache rows within 1e-5 (and, the
+  port leaving every row as the JAX engine's prefill does, the cache
+  lengths of every slot equal);
 * the engine against the port's own greedy full forward (dense and vlm);
 * ``examples/serve_lm.py`` run as it is, and its sequence on the port
   with the example's params: equal answers;
@@ -156,17 +156,17 @@ def test_engine_matches_jax(arch):
     jcfg, tcfg = jconfigs.get_arch(arch).SMOKE, tconfigs.get_arch(arch).SMOKE
     jp, tp = jax_params(jcfg)
     rng = np.random.default_rng(0)
-    # two prompt lengths: the JAX engine compiles prefill once per length
+    # three prompt lengths: the JAX engine compiles prefill once per length
     prompts = [rng.integers(0, tcfg.vocab, n).astype(np.int32)
-               for n in (6, 9) * 4]
-    kw = dict(slots=3, smax=32, kv_blocks=12, block_tokens=4)
+               for n in (6, 9, 4, 6, 9, 4, 6, 9)]
+    kw = dict(slots=3, smax=32, kv_blocks=16, block_tokens=4)
     je = JEngine(japi.build_model(jcfg), jp, **kw)
     te = TEngine(tapi.build_model(tcfg), tp, **kw)
     jlog, tlog = [], []
     watch_rows(je, jlog, jax_row)
     watch_rows(te, tlog, port_row)
-    jres = je.run(prompts, max_new=10)
-    tres = te.run(prompts, max_new=10)
+    jres = je.run(prompts, max_new=16)
+    tres = te.run(prompts, max_new=16)
     assert tres == jres and len(tres) == len(prompts)
     assert kv_state(te.kv) == kv_state(je.kv)
     # the run made defrags, refused admissions and reused slots, and an
@@ -174,6 +174,7 @@ def test_engine_matches_jax(arch):
     assert te.kv.defrags >= 2 and te.kv.overflow >= 1
     assert len(prompts) > kw["slots"]
     assert int(te.cache[2].max()) > kw["smax"]
+    np.testing.assert_array_equal(te.cache[2].numpy(), np.asarray(je.cache[2]))
     assert len(tlog) == len(jlog)
     for step, (a, b) in enumerate(zip(tlog, jlog)):
         assert a.keys() == b.keys(), step

@@ -193,7 +193,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models, repro_torch.models.api\n"
         "import repro_torch.configs, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve\n"
-        "repro_torch.configs.get_arch('qwen2-vl-2b')\n"
+        "import repro_torch.models.ssm, repro_torch.models.rglru\n"
+        "import repro_torch.models.layers, repro_torch.models.lm\n"
+        "for a in repro_torch.configs.ARCH_IDS:\n"
+        "    repro_torch.configs.get_arch(a)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
