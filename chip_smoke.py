@@ -221,7 +221,29 @@ Phases (any failure raises and the script exits non-zero):
    same ``enc_out``.
    Each of 15-18 fails if a request does not finish, a token is outside
    the vocabulary, a logit is not finite, RadixKV overflows (15-17) or a
-   graph kernel's launch counter moves.
+   graph kernel's launch counter moves;
+19. ``lm_train`` (``repro_torch.launch.train``, ``repro_torch.train``):
+   internlm2-1.8b at its published width, bf16 params and grads, float32
+   AdamW moments, remat on; seq 4,096, a global batch of 4 as 2
+   accumulated micro-batches of 2. ``launch.train.main`` trains 2 steps on
+   the card; then, on a fresh state from ``--seed``, one warm step and 4
+   timed steps through the same ``make_train_step`` (CUDA events; fewer,
+   then a batch of 2, and ``reduced`` printed, where the time so far
+   projects past the script's limit) and one step under
+   ``torch.profiler``: step ms p50 / max, tokens/s, peak memory, the
+   state's bytes, launches a step and the device's busy share, the FLOP
+   bound (6 x params x tokens at 989 TFLOP/s) and its share of the step
+   (``mfu``). The float32 gate: the same model cut to 2 layers
+   (``reduced``), weights at 1/sqrt(fan-in), one step in float64 and one
+   in float32 (TF32 off) on the same batch: the loss within 1e-5
+   relative and every gradient leaf within 1e-4 (|g32 - g64| / |g64|);
+   the bf16 step's loss printed beside. The SMOKE loop gates through
+   ``launch.train.main``: the loss decreases over 120 steps, and a run
+   checkpointed at 20 (under ``build/``) and resumed to 30 equals an
+   uninterrupted one. Launch counters are zeroed before these parts and
+   must read 0 after (synthetic tokens); then 3 SMOKE steps on ``--data
+   graph`` (walks over a 4,096-row ``RadixGraph`` on the card) must
+   launch ``append`` and ``sort_lookup``.
 
 The ``kernels`` line gives each kernel's main-path ``launches``, the
 durability replay's ``replay_launches``, the sharded phase's
@@ -229,8 +251,9 @@ durability replay's ``replay_launches``, the sharded phase's
 (``sharded_max_abs_err``, null where the phase did not call it), and the
 sharded analytics' ``sharded_analytics_launches`` and
 ``sharded_analytics_max_abs_err``, the sharded recovery's
-``sharded_replay_launches`` and the sharded service's
-``sharded_service_launches``; each of the five TPU kernels'
+``sharded_replay_launches``, the sharded service's
+``sharded_service_launches`` and the graph-fed training run's
+``train_launches``; each of the five TPU kernels'
 entries has ``tpu_kernel`` true, and ``art_insert`` (a port of the JAX
 function ``_art_insert``, no TPU kernel) follows with ``tpu_kernel``
 false, its launches in the baselines phase and its times on the 2^14-ID
@@ -3970,7 +3993,18 @@ LM_MOE = dict(arch="kimi-k2-1t-a32b", layers=1, slots=8, smax=1024,
 LM_ENCDEC = dict(arch="whisper-small", frames=1500, prompt=(4, 64), new=64,
                  smax=128, requests=8, floor=2, gate_requests=4,
                  fixed_s=10.0, per_request_s=1.0)
-LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC)
+# internlm2-1.8b at its published width, bf16 params and grads, float32
+# AdamW moments, remat on; seq 4,096 (the repo's ``train_4k`` length), a
+# global batch of 4 as 2 accumulated micro-batches of 2 (16,384 tokens a
+# step). ``requests`` / ``floor`` are timed steps here; ``fixed_s`` covers
+# the launcher's steps, the warm and profiled steps, the gates and the
+# SMOKE loops; ``per_request_s`` a timed step: about 1.4x an H100's
+# (6.2-6.9 s a step; the phase's other parts 45-53 s).
+LM_TRAIN = dict(arch="internlm2-1.8b", seq=4096, batch=4, accum=2,
+                launch_steps=2, requests=4, floor=3, gate_layers=2,
+                gate_batch=2, gate_seq=1024, graph_steps=3, fixed_s=75.0,
+                per_request_s=9.0, device="cuda")
+LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC, LM_TRAIN)
 MOE_GATE_TOL = dict(rtol=2e-2, atol=2e-3)   # atol on the output's scale
 # the served (bf16) MoE layer against the float32 loop: the repo's bf16
 # tolerance (``BF16_TOL`` of tests/test_torch_models.py). Its roundings
@@ -4712,6 +4746,352 @@ def phase_lm_encdec(args, torch, elapsed_s=0.0):
     del params, model, frames, logits, enc
     free_card(torch)
 
+# --------------------------------------------------------------------------
+# LM training (after lm_encdec)
+# --------------------------------------------------------------------------
+
+H100_BF16_DENSE_FLOPS = 989e12   # NVIDIA data sheet, SXM, dense
+TRAIN_LOSS_REL_TOL = 1e-5        # float32 step's loss against float64
+TRAIN_GRAD_REL_TOL = 1e-4        # each leaf's |g32 - g64| / |g64|
+# the SMOKE loop gates: tests/test_train_checkpoint.py's arguments
+TRAIN_DECREASE_ARGS = ["--arch", "internlm2-1.8b", "--smoke", "--steps",
+                       "120", "--batch", "16", "--seq", "64", "--lr", "1e-3"]
+TRAIN_RESUME_ARGS = ["--arch", "internlm2-1.8b", "--smoke", "--batch", "4",
+                     "--seq", "32", "--schedule-total", "30"]
+
+
+def train_plan(spec, elapsed_s: float):
+    """(timed steps, global batch) that keep the projected script time
+    inside ``TIME_LIMIT_S`` less ``TIME_MARGIN_S``: timed steps are cut
+    first (to ``floor``), then the batch is halved (one micro-batch row
+    of each of the ``accum``); ``reduced`` printed for either cut."""
+    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - spec["fixed_s"]
+    per = spec["per_request_s"]
+    steps = int(min(spec["requests"], max(spec["floor"], room // per)))
+    batch = spec["batch"]
+    if room < spec["floor"] * per:
+        batch //= 2
+    if steps < spec["requests"] or batch < spec["batch"]:
+        say("reduced", arch=spec["arch"], phase="lm_train", timed_steps=steps,
+            asked_steps=spec["requests"], batch=batch,
+            asked_batch=spec["batch"], elapsed_s=elapsed_s)
+    return steps, batch
+
+
+def train_batch(torch, stream, accum, device):
+    """The stream's next batch as (accum, micro-batch, ...) tensors on the
+    card, as ``launch.train`` reshapes and places it."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.reshape((accum, -1) + v.shape[1:]))).to(device)
+        for k, v in next(stream).items()}
+
+
+def lm_train_profile(torch, step_fn, state, batch):
+    """One train step under ``torch.profiler`` (device activity only):
+    kernel events, the runtime's launch calls, the device's busy share.
+    The profiler's raw events are read (``kineto_results``): building its
+    event tree for a step's ~175,000 kernels took 28.8 s on an H100."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t_trace = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t_events = time.perf_counter()
+    launch_calls = kernels = busy_ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            kernels += not e.name().startswith(("Memcpy", "Memset"))
+        elif "LaunchKernel" in e.name():
+            launch_calls += 1
+    return state, dict(step_ms=wall * 1e3, launch_calls=launch_calls,
+                       kernel_events=kernels,
+                       device_busy_share=busy_ns / (wall * 1e9),
+                       loss=float(m["loss"]), trace_s=t_events - t_trace,
+                       events_s=time.perf_counter() - t_events)
+
+
+def lm_train_timed(args, torch, spec, elapsed_s):
+    """The full-width run: ``launch.train.main`` for ``launch_steps``
+    steps, then, on a fresh state from the seed, one warm step and the
+    timed steps through the same ``make_train_step`` (CUDA events around
+    each), one profiled step. Fails on a non-finite loss or gradient
+    norm."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.api import build_model
+    from repro_torch.train import (adamw, cosine_schedule, init_train_state,
+                                   make_train_step)
+    cfg = get_arch(spec["arch"]).CONFIG
+    steps, batch = train_plan(spec, elapsed_s)
+    accum, seq, dev = spec["accum"], spec["seq"], spec["device"]
+    marks = [time.perf_counter()]
+    torch.cuda.reset_peak_memory_stats()
+    launch_losses = ltrain.main([
+        "--arch", cfg.arch, "--steps", str(spec["launch_steps"]),
+        "--batch", str(batch), "--seq", str(seq), "--accum", str(accum),
+        "--device", dev])
+    launch_peak = torch.cuda.max_memory_allocated()
+    free_card(torch)
+    marks.append(time.perf_counter())
+
+    model = build_model(cfg)
+    opt = adamw(cosine_schedule(3e-4, 20, 21))    # the launcher's
+    state = init_train_state(model, opt, torch.Generator(dev).manual_seed(
+        args.seed))
+    count, pbytes = lm_check_params(torch, cfg, state.params, "lm_train")
+    step_fn = make_train_step(model, opt, accum=accum)
+    stream = TokenStream(cfg.vocab, batch, seq, seed=args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, train_batch(torch, stream, accum, dev))
+    warm_loss = float(m["loss"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    marks.append(time.perf_counter())
+    times, losses, gnorms = [], [], []
+    for _ in range(steps):
+        b = train_batch(torch, stream, accum, dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, m = step_fn(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    marks.append(time.perf_counter())
+    state, prof = lm_train_profile(torch, step_fn, state,
+                                   train_batch(torch, stream, accum, dev))
+    marks.append(time.perf_counter())
+    tokens = batch * seq
+    bound_ms = 6 * count * tokens / H100_BF16_DENSE_FLOPS * 1e3
+    p50 = float(np.percentile(times, 50))
+    fails = []
+    if not np.all(np.isfinite(launch_losses + losses + gnorms +
+                              [warm_loss, prof["loss"]])):
+        fails.append("a non-finite loss or gradient norm")
+    say("lm_train", card=card_line(), arch=cfg.arch, dtype=cfg.param_dtype,
+        layers=cfg.layers, d_model=cfg.d_model, vocab=cfg.vocab,
+        params=count, remat=cfg.remat, optimizer="adamw",
+        seq=seq, global_batch=batch, accum=accum,
+        micro_batch=batch // accum, tokens_per_step=tokens,
+        launch_train=dict(steps=spec["launch_steps"], losses=launch_losses,
+                          peak_memory_bytes=launch_peak),
+        warm_step_ms=warm_ms, warm_loss=warm_loss, timed_steps=steps,
+        step_ms=times, step_ms_p50=p50, step_ms_max=max(times),
+        tokens_per_s=tokens / (p50 / 1e3), losses=losses,
+        grad_norms=gnorms, peak_memory_bytes=peak,
+        state_bytes=dict(params=pbytes, grads=pbytes,
+                         adamw_m_v=2 * 4 * count,
+                         float32_accumulator=4 * count if accum > 1 else 0),
+        profile=prof, flops_bound=dict(
+            flops=6 * count * tokens, rule="6 x params x tokens",
+            peak_flops=H100_BF16_DENSE_FLOPS, bound_ms=bound_ms,
+            bound_by="operations"),
+        mfu=bound_ms / p50,
+        seconds_by_part=dict(zip(("launch_train", "warm", "timed",
+                                  "profile"), np.diff(marks).tolist())),
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_train: {fails}")
+    del state, step_fn, model, opt
+    free_card(torch)
+
+
+def lm_train_gate(args, torch, spec):
+    """The float32 gate: internlm2-1.8b at full width cut to
+    ``gate_layers`` layers (``reduced``), weights at 1/sqrt(fan-in), one
+    ``make_train_step`` step in float64 and one in float32 (TF32 off) on
+    the same batch and params; the gradients taken at the
+    ``grad_transform`` hook (before the clip). Fails if the loss's
+    relative error passes ``TRAIN_LOSS_REL_TOL`` or any leaf's
+    |g32 - g64| / |g64| passes ``TRAIN_GRAD_REL_TOL``. The bf16 step's
+    loss on the same params is printed beside (no gate)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models.api import build_model
+    from repro_torch.train import adamw, cosine_schedule, make_train_step
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import flatten_with_path, tree_map
+    full = get_arch(spec["arch"]).CONFIG
+    L, dev = spec["gate_layers"], spec["device"]
+    say("reduced", phase="lm_train_gate", arch=full.arch, layers=L,
+        published_layers=full.layers)
+    cfg = full.scaled(layers=L)
+    b = next(TokenStream(cfg.vocab, spec["gate_batch"], spec["gate_seq"],
+                         seed=args.seed))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        cfg32 = cfg.scaled(param_dtype="float32", compute_dtype="float32")
+        params32 = build_model(cfg32).init(
+            torch.Generator(dev).manual_seed(args.seed))
+        lm_fan_in_scale(params32)
+        g64 = {}
+
+        def run(dtype, params, keep):
+            c = cfg.scaled(param_dtype=dtype, compute_dtype=dtype)
+            model = build_model(c)
+            opt = adamw(cosine_schedule(3e-4, 20, 21))
+            state = TrainState(params, opt.init(params), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            fn = make_train_step(model, opt, grad_transform=keep)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            t0 = time.perf_counter()
+            _, m = fn(state, batch)
+            loss = float(m["loss"])
+            out[dtype] = dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                              seconds=time.perf_counter() - t0)
+
+        def keep64(g):
+            g64.update((("/".join(p), x.clone()) for p, x in
+                        flatten_with_path(g)))
+            return g
+
+        def cmp32(g):
+            errs = {}
+            for p, x in flatten_with_path(g):
+                ref = g64["/".join(p)]
+                errs["/".join(p)] = float(torch.linalg.vector_norm(
+                    x.double() - ref) / torch.linalg.vector_norm(ref))
+            out["leaf_rel_errs"] = errs
+            return g
+
+        run("float64", tree_map(lambda t: t.double(), params32), keep64)
+        run("float32", tree_map(lambda t: t.clone(), params32), cmp32)
+        del g64
+        run("bfloat16", tree_map(lambda t: t.to(torch.bfloat16), params32),
+            None)
+        del params32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    l32, l64 = out["float32"]["loss"], out["float64"]["loss"]
+    loss_rel = abs(l32 - l64) / abs(l64)
+    errs = out["leaf_rel_errs"]
+    worst = max(errs, key=errs.get)
+    fails = []
+    if not loss_rel <= TRAIN_LOSS_REL_TOL:
+        fails.append(f"loss rel err {loss_rel} > {TRAIN_LOSS_REL_TOL}")
+    if not errs[worst] <= TRAIN_GRAD_REL_TOL:
+        fails.append(f"grad leaf {worst}: rel err {errs[worst]} > "
+                     f"{TRAIN_GRAD_REL_TOL}")
+    say("lm_train_gate", card=card_line(), arch=cfg.arch, layers=L,
+        d_model=cfg.d_model, vocab=cfg.vocab, weights="1/sqrt(fan-in)",
+        tf32=False, batch=spec["gate_batch"], seq=spec["gate_seq"],
+        loss_float64=l64, loss_float32=l32,
+        loss_bfloat16_printed_only=out["bfloat16"]["loss"],
+        loss_rel_err=loss_rel, loss_tol=TRAIN_LOSS_REL_TOL,
+        grad_leaf_rel_err_max=errs[worst], worst_leaf=worst,
+        grad_leaf_rel_errs=errs, grad_tol=TRAIN_GRAD_REL_TOL,
+        grad_norm_float64=out["float64"]["grad_norm"],
+        grad_norm_float32=out["float32"]["grad_norm"],
+        seconds={k: out[k]["seconds"]
+                 for k in ("float64", "float32", "bfloat16")},
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_train_gate: {fails}")
+    free_card(torch)
+
+
+def lm_train_loops(torch, spec):
+    """The SMOKE loop gates through ``launch.train.main`` on the card:
+    the loss decreases over 120 steps (the mean of the last 10 below the
+    mean of the first 10 less 0.05), and a run checkpointed at 20 and
+    resumed to 30 equals an uninterrupted 30-step run (the last 5 losses
+    within rtol 2e-4 / atol 1e-5). The checkpoints go under ``build/``
+    and are removed; the launcher's SIGTERM hook is taken off after."""
+    import shutil
+    import signal
+    from repro_torch.launch import train as ltrain
+    cuda = ["--device", spec["device"]]
+    t0 = time.perf_counter()
+    dec = ltrain.main(TRAIN_DECREASE_ARGS + cuda)
+    first, last = float(np.mean(dec[:10])), float(np.mean(dec[-10:]))
+    t1 = time.perf_counter()
+    d = os.path.join(ROOT, "build", "lm_train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    hook = signal.getsignal(signal.SIGTERM)
+    try:
+        a = ltrain.main(TRAIN_RESUME_ARGS + cuda + [
+            "--steps", "20", "--ckpt-dir", d, "--ckpt-every", "10"])
+        b = ltrain.main(TRAIN_RESUME_ARGS + cuda + [
+            "--steps", "30", "--ckpt-dir", d, "--ckpt-every", "10"])
+    finally:
+        signal.signal(signal.SIGTERM, hook)
+        shutil.rmtree(d, ignore_errors=True)
+    c = ltrain.main(TRAIN_RESUME_ARGS + cuda + ["--steps", "30"])
+    t2 = time.perf_counter()
+    diff = np.abs(np.asarray(b[-5:]) - np.asarray(c[-5:]))
+    resume_ok = len(a) == 20 and len(b) == 10 and bool(np.all(
+        diff <= 1e-5 + 2e-4 * np.abs(np.asarray(c[-5:]))))
+    fails = []
+    if not last < first - 0.05:
+        fails.append(f"loss did not decrease: {first} -> {last}")
+    if not resume_ok:
+        fails.append(f"resumed losses {b[-5:]} differ from {c[-5:]}")
+    say("lm_train_loops", card=card_line(), arch="internlm2-1.8b SMOKE",
+        decrease=dict(steps=len(dec), mean_first_10=first,
+                      mean_last_10=last, seconds=t1 - t0,
+                      step_ms_mean=(t1 - t0) * 1e3 / len(dec)),
+        resume=dict(resumed=b[-5:], uninterrupted=c[-5:],
+                    max_abs_diff=float(diff.max()), rtol=2e-4, atol=1e-5,
+                    seconds=t2 - t1),
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_train_loops: {fails}")
+
+
+def phase_lm_train(args, torch, elapsed_s=0.0):
+    """``lm_train``: the full-width run (``lm_train_timed``), the float32
+    gate (``lm_train_gate``), the SMOKE loop gates (``lm_train_loops``),
+    all on synthetic tokens with the graph kernels' launch counters
+    zeroed before and required at 0 after; then a few SMOKE steps on
+    ``--data graph``, whose ingest must launch ``append`` and
+    ``sort_lookup``. Returns the graph-fed run's launches by kernel."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as ltrain
+    t_phase = time.perf_counter()
+    kops.reset_launch_counts()
+    lm_train_timed(args, torch, LM_TRAIN, elapsed_s)
+    lm_train_gate(args, torch, LM_TRAIN)
+    lm_train_loops(torch, LM_TRAIN)
+    synthetic = kops.launch_counts()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = ltrain.main(["--arch", "internlm2-1.8b", "--smoke", "--steps",
+                          str(LM_TRAIN["graph_steps"]), "--batch", "2",
+                          "--seq", "64", "--data", "graph",
+                          "--device", LM_TRAIN["device"]])
+    graph_s = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    fails = []
+    if any(synthetic.values()):
+        fails.append(f"graph kernels launched on synthetic data: {synthetic}")
+    if not (launches["append"] and launches["sort_lookup"]):
+        fails.append(f"the graph-fed run launched {launches}")
+    if not np.all(np.isfinite(losses)):
+        fails.append("a non-finite loss on graph walks")
+    say("lm_train_graph", card=card_line(), steps=len(losses), losses=losses,
+        synthetic_parts_launches=synthetic, graph_fed_launches=launches,
+        seconds=graph_s, phase_seconds=time.perf_counter() - t_phase,
+        failed=fails or None)
+    if fails:
+        raise AssertionError(f"lm_train_graph: {fails}")
+    free_card(torch)
+    return launches
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4795,6 +5175,9 @@ def main(argv=None):
                     time.perf_counter() - t_start)
     phase_lm_moe(args, torch, time.perf_counter() - t_start)
     phase_lm_encdec(args, torch, time.perf_counter() - t_start)
+    train = phase_lm_train(args, torch, time.perf_counter() - t_start)
+    for line in kernels:    # launches of the graph-fed training run
+        line["train_launches"] = train[line["name"]]
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

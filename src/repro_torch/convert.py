@@ -16,7 +16,11 @@ never sees a JAX object.
 an LM parameter dict (the JAX package's params after ``jax.tree.map(
 np.asarray, params)``) into the port and back, dtypes kept: bfloat16
 leaves (``ml_dtypes.bfloat16`` in numpy, which ``torch.from_numpy``
-refuses) go through their 16-bit patterns.
+refuses) go through their 16-bit patterns. ``train_state_from_numpy`` /
+``train_state_to_numpy`` do the same for a training state (params, either
+optimizer's state, step), matched by field name: the JAX package's
+``TrainState`` after ``jax.tree.map(np.asarray, state)`` goes in, the
+port's ``TrainState`` of numpy arrays comes out.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from .core.sort import SortState
 from .core.vertex_table import VertexTable
 
 __all__ = ["state_from_numpy", "state_to_numpy", "snapshot_from_numpy",
-           "snapshot_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy"]
+           "snapshot_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 _UINT32_FIELDS = ("ids",)
 
@@ -100,28 +105,58 @@ def snapshot_to_numpy(snap: GraphSnapshot) -> GraphSnapshot:
                             for f in GraphSnapshot._fields})
 
 
+def _tensors(tree, device):
+    """A numpy array, or a dict (nested) of them, as tensors on
+    ``device``, dtypes kept (bfloat16 through its 16-bit patterns)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a.view(np.uint16), copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _arrays(tree):
+    """A tensor, or a dict (nested) of them, as numpy copies (bfloat16
+    leaves as ``ml_dtypes.bfloat16``, the dtype JAX hands to numpy)."""
+    if isinstance(tree, dict):
+        return {k: _arrays(v) for k, v in tree.items()}
+    if tree.dtype == torch.bfloat16:
+        import ml_dtypes     # only where a bfloat16 leaf needs it
+        return _host(tree.view(torch.int16)).view(ml_dtypes.bfloat16)
+    return _host(tree)
+
+
 def lm_params_from_numpy(tree, device="cuda"):
     """A dict (nested) of numpy arrays as the same dict of tensors on
     ``device``, each with its dtype."""
-    device = resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            bits = np.array(a.view(np.uint16), copy=True).view(np.int16)
-            return torch.from_numpy(bits).view(torch.bfloat16).to(device)
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
-    return {k: lm_params_from_numpy(v, device) if isinstance(v, dict)
-            else leaf(v) for k, v in tree.items()}
+    return _tensors(tree, resolve_device(device))
 
 
 def lm_params_to_numpy(params):
     """The port's LM params as a dict of numpy arrays (bfloat16 leaves as
     ``ml_dtypes.bfloat16``, the dtype JAX hands to numpy)."""
-    def leaf(t):
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes     # only where a bfloat16 leaf needs it
-            return _host(t.view(torch.int16)).view(ml_dtypes.bfloat16)
-        return _host(t)
-    return {k: lm_params_to_numpy(v) if isinstance(v, dict) else leaf(v)
-            for k, v in params.items()}
+    return _arrays(params)
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """A training state of numpy arrays (fields ``params``, ``opt_state``,
+    ``step``) as the port's ``TrainState`` of tensors on ``device``: the
+    params and the optimizer's dict (AdamW's ``m`` / ``v`` / ``count``,
+    Adafactor's ``s`` / ``count``) leaf for leaf, dtypes kept; ``step``
+    a 0-d int32 tensor."""
+    from .train.step import TrainState
+    device = resolve_device(device)
+    return TrainState(params=_tensors(state.params, device),
+                      opt_state=_tensors(dict(state.opt_state), device),
+                      step=_tensors(np.asarray(state.step, np.int32), device))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` as the same ``TrainState`` of numpy arrays
+    (bfloat16 leaves as ``ml_dtypes.bfloat16``)."""
+    from .train.step import TrainState
+    return TrainState(params=_arrays(state.params),
+                      opt_state=_arrays(state.opt_state),
+                      step=_arrays(state.step))

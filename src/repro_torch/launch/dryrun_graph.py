@@ -182,7 +182,7 @@ def main(argv=None):
     if args.mode in ("ingest", "analytics"):
         sys.exit(f"dryrun_graph --mode {args.mode} lowers XLA HLO for a "
                  "cost model in the JAX package; its port is queued "
-                 "(ROADMAP Queue 1, item 5). Run --mode serve or persist.")
+                 "(ROADMAP Queue 1, item 3). Run --mode serve or persist.")
     mode = _mode_serve if args.mode == "serve" else _mode_persist
     return mode(args, args.shards)
 

@@ -1,8 +1,8 @@
 """Public model API of the port: ``build_model(cfg) -> Model`` (init /
-prefill / decode / init_cache) and exact parameter accounting, for
-every family. Counterpart of ``repro.models.api``; ``train_loss`` waits
-for the training slice.
+train_loss / prefill / decode / init_cache) and exact parameter
+accounting, for every family. Counterpart of ``repro.models.api``.
 
+  train_loss(params, batch)     -> scalar loss (differentiable)
   prefill(params, batch, cache) -> (last-position logits, cache)
   decode(params, batch, cache)  -> (logits of ONE new token, cache)
 
@@ -30,6 +30,7 @@ class Model:
     cfg: ModelConfig
     init: Callable          # (generator or seed, device) -> params
     logical_specs: Any      # dict of logical axis tuples (parallel to params)
+    train_loss: Callable    # (params, batch) -> scalar loss
     prefill: Callable       # (params, batch, cache) -> (logits, cache)
     decode: Callable        # (params, batch, cache) -> (logits, cache)
     init_cache: Callable    # (batch, smax, device) -> cache
@@ -146,6 +147,23 @@ def build_model(cfg: ModelConfig) -> Model:
                                                    device))
         return params
 
+    def train_loss(params, batch):
+        """The chunked cross-entropy of ``batch["labels"]`` (-1 masked)
+        plus 0.01 x the MoE balance loss; positions from
+        ``make_positions`` unless the batch has them; ``encdec`` encodes
+        ``batch["frames"]`` first."""
+        tokens = batch["tokens"]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = lm.make_positions(cfg, tokens)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = lm.encode(cfg, params, batch["frames"])
+        h, _, aux = lm.forward(cfg, params, tokens, pos, "train",
+                               enc_out=enc_out)
+        loss = lm.xent_chunked(cfg, params, h, batch["labels"])
+        return loss + 0.01 * aux
+
     @torch.no_grad()
     def prefill(params, batch, cache):
         tokens = batch["tokens"]
@@ -174,7 +192,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return lm._unembed(cfg, params, h[:, -1:])[:, 0], cache
 
     return Model(cfg=cfg, init=init, logical_specs=logical,
-                 prefill=prefill, decode=decode,
+                 train_loss=train_loss, prefill=prefill, decode=decode,
                  init_cache=functools.partial(_cache_struct, cfg))
 
 

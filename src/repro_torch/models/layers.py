@@ -80,10 +80,19 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # norms / activations
 # ---------------------------------------------------------------------------
 
+def up32(x):
+    """``x`` in float32, the JAX package's ``astype(float32)`` for its
+    statistics, logits and attention; a float64 tensor stays float64 (a
+    float64 model, the reference of a float32 gate, computes in float64
+    throughout; JAX never meets one)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm(x, g, eps=1e-6):
-    """Statistics in float32, products in ``x``'s dtype, in this order:
-    ``x * r * g`` (a bfloat16 run drifts from the JAX one otherwise)."""
-    x32 = x.float()
+    """Statistics in float32 (``up32``), products in ``x``'s dtype, in this
+    order: ``x * r * g`` (a bfloat16 run drifts from the JAX one
+    otherwise)."""
+    x32 = up32(x)
     r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     return x * r.to(x.dtype) * g.to(x.dtype)
 
@@ -172,7 +181,8 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh) with Hq % Hkv == 0.
     ``q_offset`` is the absolute position of q[0] (prefill continuation).
     Padded KV positions are masked (``kv_valid``); masked scores are
-    -1e30; the softmax statistics and the accumulator are float32.
+    -1e30; the softmax statistics and the accumulator are float32
+    (``up32``).
     """
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -193,15 +203,16 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     kv_valid = torch.arange(nk * kv_chunk, device=dev) < Skv
     outs = []
     for qi in range(nq):
-        qblk = qs[qi].float()
+        qblk = up32(qs[qi])
+        f = dict(dtype=qblk.dtype, device=dev)
         qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((B, Hq, q_chunk), NEG_INF, device=dev)
-        l = torch.zeros((B, Hq, q_chunk), device=dev)
-        acc = torch.zeros((B, Hq, q_chunk, Dh), device=dev)
+        m = torch.full((B, Hq, q_chunk), NEG_INF, **f)
+        l = torch.zeros((B, Hq, q_chunk), **f)
+        acc = torch.zeros((B, Hq, q_chunk, Dh), **f)
         for ki in range(nk):
             kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
-            kg = ks[ki].repeat_interleave(G, dim=1).float()
-            vg = vs[ki].repeat_interleave(G, dim=1).float()
+            kg = up32(ks[ki].repeat_interleave(G, dim=1))
+            vg = up32(vs[ki].repeat_interleave(G, dim=1))
             s = torch.einsum("bhqd,bhkd->bhqk", qblk, kg) * scale
             mask = kv_valid[kpos][None, :]
             if causal:

@@ -3,8 +3,11 @@ hybrid / encdec (counterpart of ``repro.models.lm``).
 
 * params are plain dicts; per-layer tensors are stacked on a leading L
   dim (the hybrid family's on (groups, per unit)), as in the JAX package,
-  and the layers run as a Python loop over that dim (no remat: the port
-  serves, it does not train yet);
+  and the layers run as a Python loop over that dim. With ``cfg.remat``
+  a training forward under autograd checkpoints each layer (a hybrid
+  group, as JAX's scan body; the loss's sequence chunks too) with
+  ``torch.utils.checkpoint``: the backward recomputes it on the same
+  dtype path, where JAX wraps the body in ``jax.checkpoint``;
 * a parallel *logical spec* tree is returned beside the params;
 * three entry modes share the block code: 'train' (no cache), 'prefill'
   (build the cache), 'decode' (one token against the cache). The cache
@@ -18,7 +21,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain
 from . import layers as L
 from . import rglru as RG
 from . import ssm as SSM
@@ -34,10 +40,15 @@ def check_family(cfg: ModelConfig):
         raise ValueError(cfg.family)
 
 
-def constrain(x, *axes):
-    """The identity: on one card there is no mesh to constrain ``x`` to
-    (``repro.dist.sharding.constrain`` is a no-op without one too)."""
-    return x
+def _remat(cfg, mode, fn, *args):
+    """``fn(*args)``, checkpointed when ``cfg.remat`` is set in a 'train'
+    forward under autograd: its activations are dropped and recomputed
+    in the backward (nothing here draws random numbers, so no RNG state
+    is kept)."""
+    if cfg.remat and mode == "train" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +272,9 @@ def mlp_apply(cfg, p, x):
 def moe_apply(cfg, p, x):
     """The MoE FFN of a layer through ``layers.moe_ffn`` (the JAX
     package's dense dispatch). Its all-to-all dispatch over an expert
-    mesh (``repro.models.moe_a2a``) needs a mesh context the port does not
-    have yet: ROADMAP Queue 1 item 4, with ``dist/sharding.py``."""
+    mesh (``repro.models.moe_a2a``) needs an expert mesh the port does
+    not have (its local mesh is one device, ``launch.mesh``): ROADMAP
+    Queue 1 item 2."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     y, aux = L.moe_ffn(h, p["router"], p["we1"], p["we3"], p["we2"],
                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
@@ -330,9 +342,16 @@ def _store(views, new):
         v.copy_(n)
 
 
-def _at(stacked, *idx):
-    """The params of one layer: ``stacked[k][idx]`` for every leaf."""
-    return {k: v[idx] for k, v in stacked.items()}
+def _unstack(stacked, depth=1):
+    """The per-layer param dicts of ``stacked`` (leaves stacked on
+    ``depth`` leading dims: a list, nested ``depth`` deep), views from
+    ``torch.unbind``: under autograd one stack gathers every layer's
+    gradient, where indexing a layer would write a zero tensor of the
+    whole stack for each layer."""
+    keys = list(stacked)
+    out = [dict(zip(keys, vals))
+           for vals in zip(*(stacked[k].unbind(0) for k in keys))]
+    return out if depth == 1 else [_unstack(g, depth - 1) for g in out]
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +366,7 @@ def _embed(cfg, params, tokens):
 def _unembed(cfg, params, h):
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ w.to(h.dtype)).float()
+    return L.up32(h @ w.to(h.dtype))
 
 
 def _attn_layer(cfg, p, x, pos, mode, cache, idx, window, causal=True):
@@ -381,9 +400,7 @@ def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family in ("dense", "vlm", "moe"):
-        stacked = params["layers"]
-        for i in range(cfg.layers):
-            p = _at(stacked, i)
+        def layer(i, p, x, aux):
             a = _attn_layer(cfg, p, x, pos, mode, cache, i, cfg.window)
             x = constrain(x + a, "batch", "act_seq", None)
             if cfg.family == "moe":
@@ -391,18 +408,23 @@ def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
                 aux = aux + la
             else:
                 m = mlp_apply(cfg, p, x)
-            x = constrain(x + m, "batch", "act_seq", None)
+            return constrain(x + m, "batch", "act_seq", None), aux
+
+        for i, p in enumerate(_unstack(params["layers"])):
+            x, aux = _remat(cfg, mode, layer, i, p, x, aux)
         return x, cache, aux / max(cfg.layers, 1)
 
     if cfg.family == "ssm":
-        stacked = params["layers"]
-        for i in range(cfg.layers):
+        def layer(i, p, x):
             c = None if cache is None else SSM.SSMCache(cache.h[i],
                                                         cache.conv[i])
-            y, nc = ssm_apply(cfg, _at(stacked, i), x, mode, c)
+            y, nc = ssm_apply(cfg, p, x, mode, c)
             if nc is not None:
                 _store(c, nc)
-            x = constrain(x + y, "batch", "act_seq", None)
+            return constrain(x + y, "batch", "act_seq", None)
+
+        for i, p in enumerate(_unstack(params["layers"])):
+            x = _remat(cfg, mode, layer, i, p, x)
         return x, cache, aux
 
     if cfg.family == "hybrid":
@@ -411,37 +433,44 @@ def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
         g_cache, t_cache = cache if cache is not None else (None, None)
         rec_c, att_c = g_cache if g_cache is not None else (None, None)
         gp = params["groups"]
-        for g in range(groups):
+
+        def group(g, rec, att, mlp, x):
             ri = ai = 0
             for j, t in enumerate(cfg.pattern):
                 if t == "rec":
-                    y = _rec_layer(cfg, _at(gp["rec"], g, ri), x, mode,
-                                   rec_c, (g, ri))
+                    y = _rec_layer(cfg, rec[ri], x, mode, rec_c, (g, ri))
                     ri += 1
                 else:
-                    y = _attn_layer(cfg, _at(gp["attn"], g, ai), x, pos,
-                                    mode, att_c, (g, ai), cfg.window)
+                    y = _attn_layer(cfg, att[ai], x, pos, mode, att_c,
+                                    (g, ai), cfg.window)
                     ai += 1
                 x = x + y
-                x = x + mlp_apply(cfg, _at(gp["mlp"], g, j), x)
+                x = x + mlp_apply(cfg, mlp[j], x)
                 x = constrain(x, "batch", "act_seq", None)
+            return x
+
+        for g, parts in enumerate(zip(_unstack(gp["rec"], 2),
+                                      _unstack(gp["attn"], 2),
+                                      _unstack(gp["mlp"], 2))):
+            x = _remat(cfg, mode, group, g, *parts, x)
         if "tail" in params:
             tp = params["tail"]
-            for j in range(cfg.layers - groups * unit):
-                x = x + _rec_layer(cfg, _at(tp["rec"], j), x, mode, t_cache,
-                                   j)
-                x = x + mlp_apply(cfg, _at(tp["mlp"], j), x)
+            for j, (rp, mp) in enumerate(zip(_unstack(tp["rec"]),
+                                             _unstack(tp["mlp"]))):
+                x = x + _rec_layer(cfg, rp, x, mode, t_cache, j)
+                x = x + mlp_apply(cfg, mp, x)
         return x, cache, aux
 
     # encdec: tokens are the decoder's; enc_out the encoder's states
-    stacked = params["dec_layers"]
-    for i in range(cfg.dec_layers):
-        p = _at(stacked, i)
+    def dec_layer(i, p, x):
         self_p = {k: p[k] for k in ("ln1", "wq", "wk", "wv", "wo") if k in p}
         x = x + _attn_layer(cfg, self_p, x, pos, mode, cache, i, None)
         x = x + _cross_attn(cfg, {k[1:]: v for k, v in p.items()
                                   if k.startswith("x")}, x, enc_out)
-        x = constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
+        return constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
+
+    for i, p in enumerate(_unstack(params["dec_layers"])):
+        x = _remat(cfg, mode, dec_layer, i, p, x)
     return x, cache, aux
 
 
@@ -458,16 +487,55 @@ def _cross_attn(cfg, p, x, enc_out):
 
 
 def encode(cfg: ModelConfig, params, frames):
-    """Whisper encoder over stub frame embeddings (B, S, d)."""
+    """Whisper encoder over stub frame embeddings (B, S, d); its layers
+    checkpointed under autograd with ``cfg.remat``, as a train forward's."""
     x = frames.to(cfg.cdt)
     pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    stacked = params["enc_layers"]
-    for i in range(cfg.enc_layers):
-        p = _at(stacked, i)
+
+    def layer(p, x):
         a, _ = attn_apply(cfg, p, x, pos, "train", None, causal=False)
         x = x + a
-        x = constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
+        return constrain(x + mlp_apply(cfg, p, x), "batch", "act_seq", None)
+
+    for p in _unstack(params["enc_layers"]):
+        x = _remat(cfg, "train", layer, p, x)
     return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def xent_chunked(cfg, params, h, labels, chunk: int | None = None):
+    """Sequence-chunked softmax cross-entropy (never materialises the
+    full logits), the JAX package's: h (B, S, d) padded to whole chunks of
+    ``chunk`` (default ``cfg.loss_chunk``) positions, labels (B, S) int
+    padded with -1 (= masked); each chunk's float32 logits from
+    ``_unembed`` (``up32``), ``logsumexp - logit[max(label, 0)]`` summed
+    where the label is >= 0; the sum over the count (at least 1). Each
+    chunk is checkpointed under autograd with ``cfg.remat``."""
+    B, S, d = h.shape
+    chunk = min(chunk or cfg.loss_chunk, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    hp = F.pad(h, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+
+    def part(hc, lc):
+        logits = _unembed(cfg, params, hc)          # (B, chunk, V) fp32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(
+            logits, lc.clamp_min(0).long()[..., None], dim=-1)[..., 0]
+        mask = (lc >= 0).float()
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = _remat(cfg, "train", part, hp[:, sl], lp[:, sl])
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 def make_positions(cfg, tokens):

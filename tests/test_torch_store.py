@@ -195,6 +195,11 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.serve\n"
         "import repro_torch.models.ssm, repro_torch.models.rglru\n"
         "import repro_torch.models.layers, repro_torch.models.lm\n"
+        "import repro_torch.train, repro_torch.train.optimizer\n"
+        "import repro_torch.train.step, repro_torch.dist.compress\n"
+        "import repro_torch.dist.sharding, repro_torch.checkpoint\n"
+        "import repro_torch.data, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.train, repro_torch.tree\n"
         "for a in repro_torch.configs.ARCH_IDS:\n"
         "    repro_torch.configs.get_arch(a)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
