@@ -124,8 +124,17 @@ Phases (any failure raises and the script exits non-zero):
    ``durable_syncs`` counts the writing steps and the WAL scans back
    whole; ops/s, step p50 / p99 ms, incremental and scratch counts;
 10. launch modes: ``python -m repro_torch.launch.dryrun_graph --mode
-   persist`` and ``--mode serve`` at 4 shards, each a subprocess on the
-   card: exit code 0, recovery bit-exact, no dropped op; both records;
+   persist``, ``--mode serve``, ``--mode ingest`` and ``--mode analytics
+   --incremental --algs bfs,pagerank,wcc,sssp,bc`` at 4 shards, each a
+   subprocess on the card, side by side: exit code 0, recovery
+   bit-exact, no dropped op; the ingest record's all-to-all elements a
+   shard equal the route buffer's (4 x its ``batch_per_shard`` rows of 6
+   words), BFS's equal its levels' dense routes (4 x the record's
+   ``n_cap`` rows of 3 words each), every other algorithm exchanged;
+   each record's ``memory.argument_size_in_bytes`` equals its
+   ``state_bytes`` (the mode's state) over 4; all four records; their
+   launches join the
+   ``kernels`` line (``launch_modes_launches``);
 11. baselines at LiveJournal's vertex count (4,847,571 IDs from 2^32):
    ``HashIndex`` and ``TorchART`` (7.5 GB of tree; its insert is one
    ``art_insert`` launch) insert every ID and look up the n IDs and n
@@ -210,7 +219,19 @@ Phases (any failure raises and the script exits non-zero):
    experts on the card from the same bf16 weights (routing of its own on
    the host): expert choice, ranks and kept slots equal, the layer in
    float32 within rtol 2e-2 / atol 2e-3 of the output's scale, the layer
-   as served (bf16) within rtol 2e-2 / atol 2e-2 of it;
+   as served (bf16) within rtol 2e-2 / atol 2e-2 of it. Then the same
+   two inputs and layer-0 weights through ``models.moe_a2a.moe_ffn_a2a``
+   on a stacked expert mesh of 8 (``make_local_mesh(data=8)``, tokens
+   on the same axis: the prefill's batch of 8 = slots): each token's
+   experts equal the dense dispatch's, the kept pairs equal a host count
+   of the per-shard capacity, the layer (float32 / as served) within the
+   same tolerances of the float32 loop run shard by shard at the
+   per-shard capacity, the aux loss the mean of the per-shard losses;
+   dropped pairs beside the dense dispatch's, and the a2a and dense
+   layers' ms. Before the gate, the engine serves 8 more requests under
+   ``set_rules(MOE_SERVE_RULES, mesh)`` (the a2a dispatch; fewer, or
+   none, and ``reduced`` printed, where the time so far projects past the
+   script's limit);
 18. ``lm_encdec``: whisper-small at its published width (238,060,800
    params): 8 requests of 1,500 stub frame embeddings and decoder prompts
    of 4-64 tokens, each prefilled through ``model.prefill`` into its row,
@@ -243,7 +264,19 @@ Phases (any failure raises and the script exits non-zero):
    uninterrupted one. Launch counters are zeroed before these parts and
    must read 0 after (synthetic tokens); then 3 SMOKE steps on ``--data
    graph`` (walks over a 4,096-row ``RadixGraph`` on the card) must
-   launch ``append`` and ``sort_lookup``.
+   launch ``append`` and ``sort_lookup``;
+20. ``lm_dryrun`` (``repro_torch.launch.dryrun``: fake DTensors on a
+   fake process group, nothing computed on any device): three cells,
+   three subprocesses side by side after ``lm_train`` (no timed phase
+   shares the host's cores with them): internlm2-1.8b x train_4k on the
+   16 x 16 mesh, kimi-k2 x decode_32k on the 2 x 16 x 16 mesh, and
+   internlm2-1.8b on a 1 x 1 mesh at ``lm_train``'s batch and sequence.
+   Each record must be ``ok`` (an op DTensor cannot place fails the
+   cell: no figure is made up); kimi's must count all-to-all bytes (the
+   ``moe_a2a`` dispatch); the 1 x 1 cell's argument bytes of params and
+   of the optimizer state (AdamW m, v and count) must equal those that
+   ``lm_train`` measured on the card. A cell still running when the
+   script must end is stopped and printed under ``reduced``.
 
 The ``kernels`` line gives each kernel's main-path ``launches``, the
 durability replay's ``replay_launches``, the sharded phase's
@@ -252,7 +285,8 @@ durability replay's ``replay_launches``, the sharded phase's
 sharded analytics' ``sharded_analytics_launches`` and
 ``sharded_analytics_max_abs_err``, the sharded recovery's
 ``sharded_replay_launches``, the sharded service's
-``sharded_service_launches`` and the graph-fed training run's
+``sharded_service_launches``, the launch modes' ingest and analytics
+runs' ``launch_modes_launches`` and the graph-fed training run's
 ``train_launches``; each of the five TPU kernels'
 entries has ``tpu_kernel`` true, and ``art_insert`` (a port of the JAX
 function ``_art_insert``, no TPU kernel) follows with ``tpu_kernel``
@@ -3042,29 +3076,74 @@ def phase_sharded_service(args, torch, sh, rec, root, elapsed_s=0.0):
     return launches
 
 
+LAUNCH_MODES = {
+    "persist": [], "serve": [], "ingest": [],
+    "analytics": ["--incremental", "--algs", "bfs,pagerank,wcc,sssp,bc"],
+}
+
+
+def launch_mode_path(mode: str) -> str:
+    tag = "__incremental" if mode == "analytics" else ""
+    return os.path.join(ROOT, "benchmarks", "results", "dryrun",
+                        f"torch-radixgraph-{mode}__4shards{tag}.json")
+
+
+def launch_mode_checks(recs) -> list:
+    """The ingest and analytics records against the route buffers'
+    shapes: the ingest exchange one (n_dst, batch a shard, 6) buffer of
+    words, a BFS level's (n_dst, n_cap, 3); every run's argument bytes
+    the state's bytes (``state_bytes``) / 4."""
+    fails = []
+    ing = recs["ingest"]
+    want = 4 * ing["batch_per_shard"] * 6      # (n_dst, cap, 6) words
+    if ing["collective_elements"]["all-to-all"] != want or \
+            ing["collective_counts"]["all-to-all"] != 1:
+        fails.append(f"ingest all-to-all {ing['collective_elements']} "
+                     f"x {ing['collective_counts']}, want {want} x 1")
+    n_cap = recs["analytics"]["n_cap"]
+    bfs = recs["analytics"]["algs"]["bfs"]
+    levels = bfs["collective_counts"]["all-to-all"]
+    if not levels or bfs["collective_elements"]["all-to-all"] != \
+            levels * 4 * n_cap * 3:
+        fails.append(f"bfs all-to-all {bfs['collective_elements']} over "
+                     f"{levels} levels, want {4 * n_cap * 3} a level")
+    runs = [ing] + list(recs["analytics"]["algs"].values())
+    for name, r in zip(["ingest"] + list(recs["analytics"]["algs"]), runs):
+        if r["memory"]["argument_size_in_bytes"] != r["state_bytes"] // 4:
+            fails.append(f"{name}: argument bytes "
+                         f"{r['memory']['argument_size_in_bytes']} != "
+                         f"state {r['state_bytes']} / 4")
+        if not r["collective_counts"]["all-to-all"]:
+            fails.append(f"{name}: no exchange")
+    if ing["ops_dropped"]:
+        fails.append(f"ingest dropped {ing['ops_dropped']} ops")
+    return fails
+
+
 def phase_launch_modes(torch):
-    """``python -m repro_torch.launch.dryrun_graph --mode persist`` and
-    ``--mode serve`` at 4 shards (their other sizes the defaults), two
+    """``python -m repro_torch.launch.dryrun_graph --mode persist``,
+    ``serve``, ``ingest`` and ``analytics --incremental`` (every
+    algorithm) at 4 shards (their other sizes the defaults), four
     subprocesses on the card side by side (each mostly its own start-up
     and host work): exit code 0, ``recovery_bit_exact`` true, the serve
-    record's ``ops_dropped`` 0; both records printed."""
+    and ingest records' ``ops_dropped`` 0, ``launch_mode_checks``; the
+    records printed. Returns the ingest and analytics runs' kernel
+    launches, summed."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] +
         ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    paths, procs, recs = {}, {}, {}
-    for mode in ("persist", "serve"):
-        paths[mode] = os.path.join(ROOT, "benchmarks", "results", "dryrun",
-                                   f"torch-radixgraph-{mode}__4shards.json")
-        if os.path.exists(paths[mode]):
-            os.remove(paths[mode])
+    procs, recs = {}, {}
+    for mode in LAUNCH_MODES:
+        if os.path.exists(launch_mode_path(mode)):
+            os.remove(launch_mode_path(mode))
     t0 = time.perf_counter()
     try:
-        for mode in paths:
+        for mode, extra in LAUNCH_MODES.items():
             procs[mode] = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun_graph",
                  "--mode", mode, "--shards", "4", "--device",
-                 LJ_STORE["device"]], env=env, cwd=ROOT,
+                 LJ_STORE["device"]] + extra, env=env, cwd=ROOT,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for mode, proc in procs.items():
             out, err = proc.communicate(timeout=600)
@@ -3072,7 +3151,7 @@ def phase_launch_modes(torch):
                 raise AssertionError(
                     f"dryrun_graph --mode {mode} failed (rc "
                     f"{proc.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
-            with open(paths[mode]) as f:
+            with open(launch_mode_path(mode)) as f:
                 recs[mode] = json.load(f)
             recs[mode]["subprocess_s"] = time.perf_counter() - t0
     finally:
@@ -3087,8 +3166,16 @@ def phase_launch_modes(torch):
     for rec in recs.values():
         if rec["device"] != torch.cuda.get_device_name(0):
             raise AssertionError(f"launch mode ran on {rec['device']}")
-    say("launch_modes", card=card_line(), persist=recs["persist"],
-        serve=recs["serve"])
+    fails = launch_mode_checks(recs)
+    launches = dict(recs["ingest"]["launch_counts"])
+    for r in recs["analytics"]["algs"].values():
+        for k, v in r["launch_counts"].items():
+            launches[k] = launches.get(k, 0) + v
+    say("launch_modes", card=card_line(), launches=launches,
+        failed=fails or None, **recs)
+    if fails:
+        raise AssertionError(f"launch_modes: {fails}")
+    return launches
 
 
 ART_PREFIX = 1 << 14        # art_insert against its plain loop
@@ -4004,7 +4091,13 @@ LM_TRAIN = dict(arch="internlm2-1.8b", seq=4096, batch=4, accum=2,
                 launch_steps=2, requests=4, floor=3, gate_layers=2,
                 gate_batch=2, gate_seq=1024, graph_steps=3, fixed_s=75.0,
                 per_request_s=9.0, device="cuda")
-LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC, LM_TRAIN)
+# the LM dry-run cells (``LM_DRYRUNS``), three processes side by side after
+# the last timed phase: ``fixed_s`` their projected seconds (the longest
+# traced in 60-80 s on the card's host)
+LM_DRYRUN = dict(arch="dryrun", requests=0, floor=0, fixed_s=100.0,
+                 per_request_s=0.0)
+LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC, LM_TRAIN,
+             LM_DRYRUN)
 MOE_GATE_TOL = dict(rtol=2e-2, atol=2e-3)   # atol on the output's scale
 # the served (bf16) MoE layer against the float32 loop: the repo's bf16
 # tolerance (``BF16_TOL`` of tests/test_torch_models.py). Its roundings
@@ -4441,6 +4534,145 @@ def moe_gate(torch, x, p, cfg, what):
                 served_outside_tol=outside(outs["served"], MOE_GATE_TOL)[1])
 
 
+A2A_SHARDS = 8     # the stacked expert mesh of ``lm_moe``'s a2a gate
+
+
+def moe_a2a_gate(torch, x, p, cfg, what, dense):
+    """``models.moe_a2a.moe_ffn_a2a`` on the served MoE input ``x`` (B,
+    S, d), B = ``A2A_SHARDS``, and layer 0's bf16 weights on a stacked
+    expert mesh (``make_local_mesh(data=A2A_SHARDS)``, tokens on the same
+    axis: each shard routes its own batch row). Held to: each token's
+    experts equal to the dense dispatch's, each shard's kept pairs to a
+    host count of the per-shard capacity, the layer (float32; as served)
+    to ``moe_reference`` run shard by shard (its capacity is the
+    shard's), the aux loss to the mean of the shards' losses. ``dense``:
+    the dense dispatch's gate of the same input (its dropped pairs)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe_a2a import a2a_plan, moe_ffn_a2a
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    mesh = make_local_mesh(x.device, data=A2A_SHARDS)
+    kw = dict(top_k=k, capacity_factor=cfg.capacity_factor, mesh=mesh,
+              token_axes=("data",), expert_axes=("data",), tp_axis=None)
+    plan = a2a_plan(B, S, E, p["we1"].shape[-1], **kw)
+    if plan is None:
+        raise AssertionError(f"moe_a2a falls back at batch {B}")
+    C = plan["C_l"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            refs, routes, auxes = [], [], []
+            for s in range(B):
+                xs = x[s].reshape(-1, d)
+                ref, rr = moe_reference(torch, xs, p, cfg)
+                refs.append(ref.cpu().numpy())
+                routes.append(rr)
+                lg = xs.float() @ p["router"].float()
+                auxes.append(float(L._load_balance_loss(
+                    lg, torch.as_tensor(rr["gidx"], device=x.device), E)))
+                del ref
+            want = np.concatenate(refs)
+            dense_r = L.moe_route(x.reshape(-1, d).float() @
+                                  p["router"].float(), k, 1)
+            outs = {}
+            for name, dt in (("float32", torch.float32), ("served", cfg.cdt)):
+                y, aux, r = moe_ffn_a2a(x, p["router"], p["we1"], p["we3"],
+                                        p["we2"], dtype=dt,
+                                        return_routing=True, **kw)
+                outs[name] = y.reshape(-1, d).float().cpu().numpy()
+                outs[name + "_aux"] = float(aux)
+                gidx = r["gidx"].reshape(-1, k).cpu().numpy()
+                kept = r["keep"].sum(-1).cpu().numpy()
+                del y, r
+                torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: moe_ffn_a2a(
+                x, p["router"], p["we1"], p["we3"], p["we2"], dtype=cfg.cdt,
+                **kw), reps=3, warm=1)
+            dense_ms = cuda_ms(lambda: L.moe_ffn(
+                x, p["router"], p["we1"], p["we3"], p["we2"], top_k=k,
+                capacity_factor=cfg.capacity_factor, dtype=cfg.cdt),
+                reps=3, warm=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    host_kept = [int(rr["keep"].sum()) for rr in routes]
+    scale = max(1e-30, float(np.abs(want).max()))
+
+    def outside(got, tol):
+        err = np.abs(got - want)
+        ok = err <= tol["atol"] * scale + tol["rtol"] * np.abs(want)
+        return float(err.max()), int((~ok).sum())
+    e32, o32 = outside(outs["float32"], MOE_GATE_TOL)
+    e16, o16 = outside(outs["served"], MOE_BF16_TOL)
+    aux_want = float(np.mean(auxes))
+    return dict(
+        what=what, shards=A2A_SHARDS, tokens=B * S, shard_capacity=C,
+        dense_capacity=dense["capacity"],
+        experts_equal_dense=bool(np.array_equal(
+            gidx, dense_r["gidx"].cpu().numpy())),
+        kept_equal_host=bool(kept.tolist() == host_kept),
+        kept_pairs=int(sum(host_kept)),
+        dropped_pairs=int(B * S * k - sum(host_kept)),
+        dense_dropped_pairs=dense["dropped_pairs"],
+        scale=scale, float32_max_abs_err=e32, float32_outside_tol=o32,
+        served_max_abs_err=e16, served_outside_bf16_tol=o16,
+        aux=outs["float32_aux"], aux_served=outs["served_aux"],
+        aux_shard_mean=aux_want,
+        aux_rel_err=abs(outs["float32_aux"] - aux_want) / abs(aux_want),
+        a2a_ms=ms, dense_ms=dense_ms)
+
+
+def moe_a2a_serve(torch, eng, prompts, cfg, elapsed_s):
+    """``A2A_SHARDS`` more requests through the served engine under
+    ``set_rules(MOE_SERVE_RULES, mesh)``: ``lm.moe_apply`` takes the
+    all-to-all dispatch on the stacked expert mesh. Fewer (a multiple of
+    the slots) or none, ``reduced`` printed, where the time so far
+    projects past the script's limit. Returns the summary (None where
+    cut)."""
+    from repro_torch.dist.sharding import MOE_SERVE_RULES, set_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe_a2a
+    later = LM_PHASES[[s["arch"] for s in LM_PHASES].index(
+        LM_MOE["arch"]) + 1:]
+    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - family_floor_s(later)
+    n = A2A_SHARDS if room > A2A_SHARDS * LM_MOE["per_request_s"] + 30 \
+        else 0
+    if n < A2A_SHARDS:
+        say("reduced", arch=cfg.arch, phase="lm_moe_a2a_serve", requests=n,
+            asked=A2A_SHARDS, elapsed_s=elapsed_s)
+    if not n:
+        return None
+    calls = []
+    real = moe_a2a.moe_ffn_a2a
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    while eng.active:            # the profile's requests, dense as served
+        eng.step()
+    moe_a2a.moe_ffn_a2a = counted
+    nf0 = int(eng.nonfinite)
+    try:
+        mesh = make_local_mesh(eng.device, data=A2A_SHARDS)
+        with set_rules(MOE_SERVE_RULES, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.run(prompts[:n], max_new=LM_MOE["new"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        moe_a2a.moe_ffn_a2a = real
+    toks = [t for r in results.values() for t in r]
+    return dict(requests=n, served_tokens=len(toks), seconds=wall,
+                tokens_per_s=len(toks) / wall, a2a_calls=len(calls),
+                a2a_prefill_calls=sum(1 for c in calls if c[1] > 1),
+                tokens_in_vocab=bool(all(0 <= t < cfg.vocab for t in toks)),
+                all_finished=len(results) == n and all(
+                    len(r) == LM_MOE["new"] for r in results.values()),
+                nonfinite_logits=int(eng.nonfinite) - nf0)
+
+
 def moe_stats(torch, calls, cfg):
     """Per recorded MoE call (its input ``x`` (B, S, d) as served):
     dropped (token, expert) pairs, expert load (max / mean hits), the
@@ -4519,6 +4751,16 @@ def phase_lm_moe(args, torch, elapsed_s=0.0):
         profile_s = time.perf_counter() - t0
     finally:
         L.moe_ffn = served_moe
+    t0 = time.perf_counter()
+    a2a_serve = moe_a2a_serve(torch, eng, run["prompts"], cfg, elapsed_s +
+                              time.perf_counter() - t_phase)
+    a2a_serve_s = time.perf_counter() - t0
+    if a2a_serve is not None and not (
+            a2a_serve["all_finished"] and a2a_serve["tokens_in_vocab"] and
+            not a2a_serve["nonfinite_logits"] and
+            a2a_serve["a2a_prefill_calls"] and
+            a2a_serve["a2a_calls"] > a2a_serve["a2a_prefill_calls"]):
+        fails.append(f"serving under MOE_SERVE_RULES: {a2a_serve}")
     layers = run["params"]["layers"]
     experts = sum(layers[k].numel() * layers[k].element_size()
                   for k in ("we1", "we2", "we3"))
@@ -4548,6 +4790,21 @@ def phase_lm_moe(args, torch, elapsed_s=0.0):
              moe_gate(torch, a_decode.reshape(-1, cfg.d_model), p0, cfg,
                       "a decode step")]
     gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a2a_gates = [moe_a2a_gate(torch, x, p0, cfg, g["what"], g)
+                 for x, g in ((first_prefill, gates[0]),
+                              (a_decode, gates[1]))]
+    a2a_gate_s = time.perf_counter() - t0
+    for g in a2a_gates:
+        if not (g["experts_equal_dense"] and g["kept_equal_host"]) or \
+                g["float32_outside_tol"] or g["served_outside_bf16_tol"] \
+                or g["aux_rel_err"] > 1e-5:
+            fails.append(f"the a2a MoE layer ({g['what']}): experts equal "
+                         f"{g['experts_equal_dense']}, kept equal "
+                         f"{g['kept_equal_host']}, "
+                         f"{g['float32_outside_tol']} float32 and "
+                         f"{g['served_outside_bf16_tol']} served outputs "
+                         f"outside, aux rel err {g['aux_rel_err']}")
     for g in gates:
         if not all(g["routing_equal"].values()) or \
                 g["float32_outside_tol"] or g["served_outside_bf16_tol"]:
@@ -4558,9 +4815,11 @@ def phase_lm_moe(args, torch, elapsed_s=0.0):
                          "outside their tolerances")
     say("lm_moe", **line, moe=stats, expert_bytes=experts,
         experts_read_ms_at_hbm_rate=experts / HBM_BYTES_PER_S * 1e3,
-        gate=gates, decode_profile=profile,
+        gate=gates, a2a_gate=a2a_gates, a2a_serve=a2a_serve,
+        decode_profile=profile,
         seconds_by_part=dict(run=line["seconds"], stats=stats_s,
-                             profile=profile_s, gate=gate_s),
+                             profile=profile_s, a2a_serve=a2a_serve_s,
+                             gate=gate_s, a2a_gate=a2a_gate_s),
         failed=fails or None, phase_seconds=time.perf_counter() - t_phase)
     if fails:
         raise AssertionError(f"lm_moe: {fails}")
@@ -4765,7 +5024,8 @@ def train_plan(spec, elapsed_s: float):
     inside ``TIME_LIMIT_S`` less ``TIME_MARGIN_S``: timed steps are cut
     first (to ``floor``), then the batch is halved (one micro-batch row
     of each of the ``accum``); ``reduced`` printed for either cut."""
-    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - spec["fixed_s"]
+    room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - spec["fixed_s"] - \
+        LM_DRYRUN["fixed_s"]
     per = spec["per_request_s"]
     steps = int(min(spec["requests"], max(spec["floor"], room // per)))
     batch = spec["batch"]
@@ -4901,8 +5161,18 @@ def lm_train_timed(args, torch, spec, elapsed_s):
         failed=fails or None)
     if fails:
         raise AssertionError(f"lm_train: {fails}")
-    del state, step_fn, model, opt
+    from repro_torch.tree import leaves as tree_leaves
+
+    def tree_bytes(t):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(t))
+    opt_state = state.opt_state
+    measured = dict(params=tree_bytes(state.params),
+                    m_v=tree_bytes(opt_state["m"]) +
+                    tree_bytes(opt_state["v"]),
+                    count=tree_bytes(opt_state["count"]))
+    del state, step_fn, model, opt, opt_state
     free_card(torch)
+    return measured
 
 
 def lm_train_gate(args, torch, spec):
@@ -5058,12 +5328,14 @@ def phase_lm_train(args, torch, elapsed_s=0.0):
     all on synthetic tokens with the graph kernels' launch counters
     zeroed before and required at 0 after; then a few SMOKE steps on
     ``--data graph``, whose ingest must launch ``append`` and
-    ``sort_lookup``. Returns the graph-fed run's launches by kernel."""
+    ``sort_lookup``. Returns the graph-fed run's launches by kernel and
+    the full-width state's bytes as measured on the card (params, AdamW
+    m + v, the count)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as ltrain
     t_phase = time.perf_counter()
     kops.reset_launch_counts()
-    lm_train_timed(args, torch, LM_TRAIN, elapsed_s)
+    measured = lm_train_timed(args, torch, LM_TRAIN, elapsed_s)
     lm_train_gate(args, torch, LM_TRAIN)
     lm_train_loops(torch, LM_TRAIN)
     synthetic = kops.launch_counts()
@@ -5089,7 +5361,115 @@ def phase_lm_train(args, torch, elapsed_s=0.0):
     if fails:
         raise AssertionError(f"lm_train_graph: {fails}")
     free_card(torch)
-    return launches
+    return launches, measured
+
+
+# the LM dry-run cells: each a subprocess of ``repro_torch.launch.dryrun``
+LM_DRYRUNS = {
+    "train_single": ["--arch", "internlm2-1.8b", "--shape", "train_4k",
+                     "--mesh", "single"],
+    "decode_multi": ["--arch", "kimi-k2-1t-a32b", "--shape", "decode_32k",
+                     "--mesh", "multi"],
+    "train_one_card": ["--arch", LM_TRAIN["arch"], "--shape", "train_4k",
+                       "--mesh", "local", "--seq", str(LM_TRAIN["seq"]),
+                       "--batch", str(LM_TRAIN["batch"])],
+}
+
+
+def lm_dryrun_path(argv) -> str:
+    a = dict(zip(argv[::2], argv[1::2]))
+    return os.path.join(ROOT, "benchmarks", "results", "dryrun",
+                        f"torch-{a['--arch']}__{a['--shape']}__"
+                        f"{a['--mesh']}.json")
+
+
+def start_lm_dryruns() -> dict:
+    """Start every ``LM_DRYRUNS`` cell as a subprocess, one intra-op
+    thread each (fake tensors: nothing is computed), its output in
+    ``build/dryrun_logs``. They start after the last timed phase, so no
+    timed figure shares the host's cores with them. Returns name ->
+    (process, start time, log path)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] +
+        ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    logs = os.path.join(ROOT, "build", "dryrun_logs")
+    os.makedirs(logs, exist_ok=True)
+    procs = {}
+    for name, argv in LM_DRYRUNS.items():
+        if os.path.exists(lm_dryrun_path(argv)):
+            os.remove(lm_dryrun_path(argv))
+        log = os.path.join(logs, name + ".txt")
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun"] + argv,
+                env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT),
+                time.perf_counter(), log)
+    return procs
+
+
+def stop_lm_dryruns(procs: dict):
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_lm_dryrun(procs: dict, measured: dict, elapsed_s: float):
+    """``lm_dryrun``: wait for each cell (at most until the script's time
+    limit less its margin; a cell still running then is stopped and
+    printed under ``reduced``), read its record: ``status`` ok; kimi's
+    ``all-to-all`` bytes above 0; the 1 x 1 cell's argument bytes of the
+    params and of the optimizer state equal ``measured`` (``lm_train``'s
+    state on the card)."""
+    t0 = time.perf_counter()
+    recs, fails, cut = {}, [], []
+    for name, (proc, started, log) in procs.items():
+        room = TIME_LIMIT_S - TIME_MARGIN_S - elapsed_s - \
+            (time.perf_counter() - t0)
+        try:
+            proc.wait(timeout=max(1.0, room))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            cut.append(name)
+            continue
+        path = lm_dryrun_path(LM_DRYRUNS[name])
+        if not os.path.exists(path):
+            with open(log) as f:
+                fails.append(f"{name}: no record (rc {proc.returncode}): "
+                             f"{f.read()[-1500:]}")
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        rec["subprocess_s"] = time.perf_counter() - started
+        recs[name] = rec
+        if rec["status"] != "ok":
+            fails.append(f"{name}: {rec.get('error')} at "
+                         f"{rec.get('failed_op')}")
+    if cut:
+        say("reduced", phase="lm_dryrun", stopped=cut,
+            elapsed_s=elapsed_s + time.perf_counter() - t0)
+    kimi = recs.get("decode_multi")
+    if kimi and kimi["status"] == "ok" and \
+            not kimi["collective_bytes"]["all-to-all"] > 0:
+        fails.append("kimi-k2 decode: no all-to-all bytes")
+    one = recs.get("train_one_card")
+    if one and one["status"] == "ok":
+        got = one["argument_bytes"]
+        if got["params"] != measured["params"] or \
+                got["opt_state"] != measured["m_v"] + measured["count"]:
+            fails.append(f"1 x 1 argument bytes {got} against the card's "
+                         f"state {measured}")
+    say("lm_dryrun", measured_state_bytes=measured, failed=fails or None,
+        **{k: {f: r.get(f) for f in (
+            "arch", "shape", "mesh", "chips", "status", "trace_s",
+            "subprocess_s", "params_total", "params_active", "flops",
+            "bytes_accessed", "memory", "argument_bytes",
+            "collective_bytes", "collective_counts", "failed_op")}
+           for k, r in recs.items()})
+    if fails:
+        raise AssertionError(f"lm_dryrun: {fails}")
 
 
 def main(argv=None):
@@ -5131,6 +5511,11 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     chase_lib = phase_build()
+    run_phases(args, torch, t_start, t0, chase_lib)
+
+
+def run_phases(args, torch, t_start, t0, chase_lib):
+    """Every phase after the build, in order, and the last lines."""
     parent = load_parent(args.parent) if args.parent else None
     stream = lj_stream(args)
     store, ids, sample, launches, tally = phase_main(args, torch, stream)
@@ -5149,7 +5534,7 @@ def main(argv=None):
                                         time.perf_counter() - t_start)
     del sh, rec
     torch.cuda.empty_cache()
-    phase_launch_modes(torch)
+    lm_launches = phase_launch_modes(torch)
     sl = next(k for k in kernels if k["name"] == "sort_lookup")
     art_line = phase_baselines(
         args, torch, sl["latency_floor_ms"] / sl["latency_floor_layers"])
@@ -5165,6 +5550,8 @@ def main(argv=None):
         line["sharded_analytics_max_abs_err"] = sa_err.get(line["name"])
         line["sharded_replay_launches"] = sd_replay[line["name"]]
         line["sharded_service_launches"] = sv_launches[line["name"]]
+        line["launch_modes_launches"] = lm_launches.get(line["name"], 0)
+    art_line["launch_modes_launches"] = lm_launches.get("art_insert", 0)
     kernels.append(art_line)
     phase_parity(torch)
     phase_lm_served(args, torch, dict(LM_SERVE, requests=args.lm_requests),
@@ -5175,9 +5562,15 @@ def main(argv=None):
                     time.perf_counter() - t_start)
     phase_lm_moe(args, torch, time.perf_counter() - t_start)
     phase_lm_encdec(args, torch, time.perf_counter() - t_start)
-    train = phase_lm_train(args, torch, time.perf_counter() - t_start)
+    train, measured = phase_lm_train(args, torch,
+                                     time.perf_counter() - t_start)
     for line in kernels:    # launches of the graph-fed training run
         line["train_launches"] = train[line["name"]]
+    dryruns = start_lm_dryruns()
+    try:
+        phase_lm_dryrun(dryruns, measured, time.perf_counter() - t_start)
+    finally:
+        stop_lm_dryruns(dryruns)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

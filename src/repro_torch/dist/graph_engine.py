@@ -63,6 +63,7 @@ from ..core.sort import SortSpec
 from ..core.tensor_ops import I32, I64, cdiv
 from ..kernels import ops
 from ..kernels.frontier import unpack_bits
+from .costs_hook import note_collective
 
 __all__ = ["shard_of_keys", "make_sharded_state", "make_apply_edges",
            "make_apply_edges_pipelined", "make_sync_vertices",
@@ -185,7 +186,11 @@ def _scatter_rows(x: torch.Tensor, tgt: torch.Tensor, n_rows: int, fill):
 
 def _all_to_all(buf: torch.Tensor) -> torch.Tensor:
     """``jax.lax.all_to_all(split_axis=0, concat_axis=0)`` over the shard
-    axis: (n_src, n_dst, ...) -> (n_dst, n_src, ...)."""
+    axis: (n_src, n_dst, ...) -> (n_dst, n_src, ...). Counted per shard
+    (``launch.costs``): each shard sends and receives ``buf.numel() /
+    n_src`` words (int64 here, where JAX's are uint32)."""
+    note_collective("all-to-all", buf.numel() // buf.shape[0],
+                    buf.element_size())
     return buf.transpose(0, 1).contiguous()
 
 
@@ -202,6 +207,7 @@ def _route_overflow(owner, mask, n: int, budget: int) -> bool:
     """Replicated: does any shard route more than ``budget`` rows to one
     destination? One host fetch (counted)."""
     over = torch.any(_owner_counts(owner, mask, n) > budget)
+    note_collective("all-reduce", 1, 4)          # JAX: psum of an int32
     return bool(ep._fetch(over)[0])
 
 
@@ -691,7 +697,8 @@ def _lookup(sspec, state: GraphState, keys: torch.Tensor) -> torch.Tensor:
 
 def _psum(parts: torch.Tensor) -> torch.Tensor:
     """Sum over the shard axis in shard order (shard 0 first), as a
-    replicated ``psum`` of per-shard partials."""
+    replicated ``psum`` of per-shard partials (counted per shard)."""
+    note_collective("all-reduce", parts[0].numel(), parts.element_size())
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p
@@ -700,7 +707,9 @@ def _psum(parts: torch.Tensor) -> torch.Tensor:
 
 def _go(flag: torch.Tensor) -> bool:
     """A replicated loop decision (``psum(...) > 0`` feeding a
-    ``while_loop``): one counted host fetch."""
+    ``while_loop``): one counted host fetch, a psum of an int32 in
+    JAX."""
+    note_collective("all-reduce", 1, 4)
     return bool(ep._fetch(flag.any())[0])
 
 

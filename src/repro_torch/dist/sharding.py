@@ -15,9 +15,14 @@ a mesh axis name or a tuple of names: the port's stand-in for JAX's
   earlier dim is dropped from later candidates.
 
 ``set_rules`` pushes an active (rules, mesh) context read by
-:func:`constrain`. The port holds every tensor whole on one device, so
-``constrain`` returns its input: without a mesh as JAX's does, and with
-one after resolving (and so checking) the annotation.
+:func:`constrain` and by ``models.lm.moe_apply`` (the all-to-all MoE
+dispatch). On the port's own meshes (``launch.mesh.LocalMesh``, every
+shard on one device) ``constrain`` returns its input: without a mesh as
+JAX's does, and with one after resolving (and so checking) the
+annotation. On the dry run's ``DeviceMesh`` (fake DTensors) it
+redistributes a DTensor to the resolved placements, as JAX's
+``with_sharding_constraint`` fixes a layout; :func:`placements_for` is
+the converter from a spec tuple to DTensor placements.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, \
 
 __all__ = ["ShardingRules", "TRAIN_RULES", "SERVE_RULES", "MOE_SERVE_RULES",
            "VARIANTS", "spec_for", "param_partition_specs", "set_rules",
-           "constrain"]
+           "constrain", "placements_for", "is_device_mesh", "mesh_sizes"]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -74,6 +79,14 @@ VARIANTS: Dict[str, Tuple[Dict[str, MeshAxes], Dict[str, Any]]] = {
 }
 
 
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a ``LocalMesh`` or a ``DeviceMesh``, in the
+    mesh's order."""
+    if is_device_mesh(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
 def _candidate_axes(entry: MeshAxes, mesh_shape, used) -> Tuple[str, ...]:
     if entry is None:
         return ()
@@ -89,7 +102,7 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
     past the shorter of the two are left out, as JAX's ``zip``).
     Resolution is left to right; each rule entry is applied all or
     nothing after filtering to the axes present in the mesh."""
-    mesh_shape = dict(mesh.shape)
+    mesh_shape = mesh_sizes(mesh)
     used: set = set()
     entries: List[MeshAxes] = []
     for dim, name in zip(shape, axes):
@@ -142,11 +155,52 @@ def set_rules(rules: ShardingRules, mesh=None):
         _ACTIVE.pop()
 
 
+def is_device_mesh(mesh) -> bool:
+    """True for a ``torch.distributed`` ``DeviceMesh`` (the dry run's),
+    False for the port's ``LocalMesh`` descriptions."""
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
+def _spec_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements_for(spec: Sequence[MeshAxes], mesh) -> list:
+    """DTensor placements (one per mesh dim) of a ``spec_for`` tuple on a
+    ``DeviceMesh``: ``Shard(d)`` on every mesh dim that tensor dim ``d``
+    names, ``Replicate()`` elsewhere. One tensor dim over several mesh
+    axes, such as ``("pod", "data")``, splits in the order the axes are
+    given, the first outermost, as a ``PartitionSpec`` does; DTensor
+    splits in mesh-dim order, so the axes must come in the mesh's order
+    (every rule table's do) and any other order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        axes = _spec_axes(entry)
+        pos = [names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(f"axes {axes} of dim {d} are not in the "
+                             f"mesh's order {tuple(names)}")
+        for i in pos:
+            out[i] = Shard(d)
+    return out
+
+
 def constrain(x, *axes: Optional[str]):
-    """``x`` itself. Inside a ``set_rules`` context with a mesh the
-    annotation is resolved first (``spec_for``), so a malformed one
-    raises as it would in JAX; one device holds ``x`` whole."""
+    """Inside a ``set_rules`` context with a mesh the annotation is
+    resolved first (``spec_for``), so a malformed one raises as it would
+    in JAX. On a ``LocalMesh`` (one device holds ``x`` whole) the result
+    is ``x`` itself; a DTensor on the dry run's ``DeviceMesh`` is
+    redistributed to the resolved placements."""
     if _ACTIVE and _ACTIVE[-1].mesh is not None:
         ctx = _ACTIVE[-1]
-        spec_for(x.shape, axes, ctx.rules, ctx.mesh)
+        spec = spec_for(x.shape, axes, ctx.rules, ctx.mesh)
+        if is_device_mesh(ctx.mesh):
+            from torch.distributed.tensor import DTensor
+            if isinstance(x, DTensor):
+                return x.redistribute(ctx.mesh,
+                                      placements_for(spec, ctx.mesh))
     return x

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -127,6 +127,48 @@ def cache_leaves(tree):
     if isinstance(tree, tuple):
         return [x for t in tree for x in cache_leaves(t)]
     return [tree]
+
+
+def shapes_and_logical(cfg: ModelConfig):
+    """(params as meta tensors, logical spec tree) without allocating: the
+    JAX package's ``eval_shape`` of the init, leaf for leaf (names,
+    shapes, dtypes, logical axis tuples)."""
+    return lm.init_params(cfg, device="meta")
+
+
+def input_specs(cfg: ModelConfig, kind: str, seq: int,
+                batch: int) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of a shape cell, the
+    JAX package's ``input_specs``. kind: 'train' | 'prefill' | 'decode'.
+    Frontends are stubs: [audio] gives precomputed frame embeddings,
+    [vlm] M-RoPE grids."""
+    S, B = seq, batch
+
+    def sd(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind in ("train", "prefill"):
+        d = {"tokens": sd((B, S))}
+        if kind == "train":
+            d["labels"] = sd((B, S))
+        if cfg.pos == "mrope":
+            d["positions"] = sd((3, B, S))
+        if cfg.family == "encdec":
+            d["frames"] = sd((B, S, cfg.d_model), cfg.cdt)
+        return d
+    if kind == "decode":
+        d = {"token": sd((B,)), "pos": sd((B,))}
+        if cfg.pos == "mrope":
+            d["positions"] = sd((3, B, 1))
+        if cfg.family == "encdec":
+            d["enc_out"] = sd((B, min(S, 4096), cfg.d_model), cfg.cdt)
+        return d
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, smax: int):
+    """The cache tree of ``init_cache(batch, smax)`` as meta tensors."""
+    return _cache_struct(cfg, batch, smax, device="meta")
 
 
 def _generator(generator_or_seed, device) -> torch.Generator:

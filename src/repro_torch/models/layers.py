@@ -195,7 +195,8 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     dev = q.device
 
     def blocks(t, n, c):        # (B, S, H, Dh) -> (n, B, H, c, Dh)
-        t = F.pad(t, (0, 0, 0, 0, 0, n * c - t.shape[1]))
+        if n * c > t.shape[1]:
+            t = F.pad(t, (0, 0, 0, 0, 0, n * c - t.shape[1]))
         return t.reshape(B, n, c, t.shape[2], Dh).permute(1, 0, 3, 2, 4)
 
     qs, ks, vs = blocks(q, nq, q_chunk), blocks(k, nk, kv_chunk), \
@@ -266,34 +267,75 @@ def moe_capacity(T: int, top_k: int, E: int, capacity_factor: float) -> int:
 
 
 def moe_route(logits, top_k: int, C: int):
-    """The dispatch of ``moe_ffn`` from router ``logits`` (T, E) float32:
-    ``lax.top_k`` (a stable descending sort: a tie goes to the lower
-    expert), the softmax gates over the k chosen, then the (token, expert)
-    pairs stably sorted by expert, each pair's rank among its expert's
-    pairs (a segmented iota via ``cummax``), and its slot ``e * C + rank``
-    where the rank is under ``C`` (else the overflow slot ``E * C``).
+    """The dispatch of ``moe_ffn`` from router ``logits`` (..., T, E)
+    float32 (leading dims: independent token groups, such as the shards
+    of ``models.moe_a2a``): ``lax.top_k`` (a stable descending sort: a
+    tie goes to the lower expert), the softmax gates over the k chosen,
+    then the (token, expert) pairs stably sorted by expert, each pair's
+    rank among its expert's pairs (a segmented iota via ``cummax``), and
+    its slot ``e * C + rank`` where the rank is under ``C`` (else the
+    overflow slot ``E * C``).
 
     Returns ``dict(gidx, gates, stt, sg, rank, keep, slot)``: gidx / gates
-    (T, k); the rest (T * k,) in expert order, ``stt`` the token and
-    ``sg`` the gate of each pair."""
-    T, E = logits.shape
+    (..., T, k); the rest (..., T * k) in expert order, ``stt`` the token
+    and ``sg`` the gate of each pair."""
+    T, E = logits.shape[-2:]
+    lead = logits.shape[:-2]
     gval, gidx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    gval, gidx = gval[:, :top_k], gidx[:, :top_k]
+    gval, gidx = gval[..., :top_k], gidx[..., :top_k]
     gates = torch.softmax(gval, dim=-1)
     dev = logits.device
-    flat_e = gidx.reshape(-1)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k)
-    order = torch.sort(flat_e, stable=True).indices
-    se, stt, sg = flat_e[order], flat_t[order], gates.reshape(-1)[order]
-    idx = torch.arange(T * top_k, device=dev)
+    flat_e = gidx.reshape(lead + (T * top_k,))
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    se = torch.gather(flat_e, -1, order)
+    stt = torch.div(order, top_k, rounding_mode="floor")
+    sg = torch.gather(gates.reshape(lead + (T * top_k,)), -1, order)
+    idx = torch.arange(T * top_k, device=dev).expand(se.shape)
     first = torch.ones_like(se, dtype=torch.bool)
-    first[1:] = se[1:] != se[:-1]
-    seg_start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    first[..., 1:] = torch.logical_not(se[..., 1:] == se[..., :-1])
+    seg_start = torch.cummax(torch.where(first, idx, 0), dim=-1).values
     rank = idx - seg_start
     keep = rank < C
     slot = torch.where(keep, se * C + rank, E * C)
     return dict(gidx=gidx, gates=gates, stt=stt, sg=sg, rank=rank,
                 keep=keep, slot=slot)
+
+
+def moe_dispatch(xf, r, E: int, C: int, dtype):
+    """The capacity buffers of routed tokens: ``xf`` (..., T, d), ``r``
+    from ``moe_route`` -> (..., E, C, d) in ``dtype``, each kept pair's
+    token in its slot, empty slots zero (JAX's ``.at[slot].set(...,
+    mode="drop")``). Every pair is written into a buffer with one extra
+    row, the overflow slot ``E * C``, which is then cut off: no
+    data-dependent shape (a fake tensor of the dry run has no data)."""
+    lead, d = xf.shape[:-2], xf.shape[-1]
+    rows = torch.gather(xf.to(dtype), -2, r["stt"][..., None].expand(
+        r["stt"].shape + (d,)))
+    buf = torch.zeros(lead + (E * C + 1, d), dtype=dtype, device=xf.device)
+    buf.scatter_(-2, r["slot"][..., None].expand(rows.shape), rows)
+    return buf[..., :E * C, :].reshape(lead + (E, C, d))
+
+
+def moe_experts(buf, w1, w3, w2, dtype):
+    """Every expert's SwiGLU FFN on its slots: buf (..., E, C, d), w1 / w3
+    (..., E, d, f), w2 (..., E, f, d) -> (..., E, C, d)."""
+    h = silu(torch.einsum("...ecd,...edf->...ecf", buf, w1.to(dtype))) * \
+        torch.einsum("...ecd,...edf->...ecf", buf, w3.to(dtype))
+    return torch.einsum("...ecf,...efd->...ecd", h, w2.to(dtype))
+
+
+def moe_combine(y, r, T: int, dtype):
+    """Each token's gated sum of its kept pairs' expert outputs: y (...,
+    E * C, d), ``r`` from ``moe_route`` -> (..., T, d) (a scatter-add:
+    on CUDA not order-stable, so a tolerance, not bit-exact)."""
+    n_slots, d = y.shape[-2:]
+    slot = r["slot"].clamp(0, n_slots - 1)[..., None]
+    gathered = torch.gather(y, -2, slot.expand(slot.shape[:-1] + (d,)))
+    contrib = torch.where(r["keep"][..., None],
+                          gathered * r["sg"][..., None].to(dtype), 0)
+    out = torch.zeros(y.shape[:-2] + (T, d), dtype=dtype, device=y.device)
+    return out.scatter_add_(-2, r["stt"][..., None].expand(contrib.shape),
+                            contrib)
 
 
 def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
@@ -302,12 +344,11 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
 
     Sort-based capacity dispatch (``moe_route``): tokens pick top-k
     experts; each expert serves at most C tokens, the overflow is dropped
-    (JAX's ``mode="drop"`` scatter: the kept pairs are written, the rest
-    masked out first). Every expert's FFN runs on its C slots (einsums
-    over all E experts: every expert weight is read), the outputs are
-    gathered back, scaled by the gates and scatter-added per token
-    (``index_add_``: on CUDA not order-stable, so a tolerance, not
-    bit-exact). Returns (y, the load-balance loss)."""
+    (JAX's ``mode="drop"`` scatter, ``moe_dispatch``). Every expert's FFN
+    runs on its C slots (einsums over all E experts: every expert weight
+    is read), the outputs are gathered back, scaled by the gates and
+    scatter-added per token (``moe_combine``). Returns (y, the
+    load-balance loss)."""
     B, S, d = x.shape
     E = router_w.shape[1]
     T = B * S
@@ -315,29 +356,19 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
     logits = xf.float() @ router_w.float()
     C = moe_capacity(T, top_k, E, capacity_factor)
     r = moe_route(logits, top_k, C)
-    keep, slot, stt = r["keep"], r["slot"], r["stt"]
-
-    buf = torch.zeros((E * C, d), dtype=dtype, device=x.device)
-    buf[slot[keep]] = xf[stt[keep]].to(dtype)
-    buf = buf.reshape(E, C, d)
-    h = silu(torch.einsum("ecd,edf->ecf", buf, w1.to(dtype))) * \
-        torch.einsum("ecd,edf->ecf", buf, w3.to(dtype))
-    y = torch.einsum("ecf,efd->ecd", h, w2.to(dtype)).reshape(E * C, d)
-
-    gathered = y[slot.clamp(0, E * C - 1)]
-    contrib = torch.where(keep[:, None],
-                          gathered * r["sg"][:, None].to(dtype), 0)
-    out = torch.zeros((T, d), dtype=dtype, device=x.device).index_add_(
-        0, stt, contrib)
+    y = moe_experts(moe_dispatch(xf, r, E, C, dtype), w1, w3, w2, dtype)
+    out = moe_combine(y.reshape(E * C, d), r, T, dtype)
     aux = _load_balance_loss(logits, r["gidx"], E)
     return out.reshape(B, S, d), aux
 
 
 def _load_balance_loss(logits, gidx, E):
+    """E x sum(mean router prob x share of picks) per token group:
+    logits (..., T, E), gidx (..., T, k) -> (...)."""
     probs = torch.softmax(logits, dim=-1)
-    pe = probs.mean(dim=0)
-    hits = torch.zeros((E,), dtype=torch.float32, device=logits.device)
-    hits.index_add_(0, gidx.reshape(-1),
-                    torch.ones(gidx.numel(), device=logits.device))
-    fe = hits / torch.clamp_min(hits.sum(), 1.0)
-    return E * torch.sum(pe * fe)
+    pe = probs.mean(dim=-2)
+    flat = gidx.reshape(gidx.shape[:-2] + (-1,))
+    hits = torch.zeros(pe.shape, dtype=torch.float32, device=logits.device)
+    hits.scatter_add_(-1, flat, torch.ones(flat.shape, device=logits.device))
+    fe = hits / torch.clamp_min(hits.sum(dim=-1, keepdim=True), 1.0)
+    return E * torch.sum(pe * fe, dim=-1)

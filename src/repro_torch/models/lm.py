@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.local_ops import (embed_rows, heads_local, merge_last,
+                              split_last, write_rows_local, xent_rows)
 from ..dist.sharding import constrain
 from . import layers as L
 from . import rglru as RG
@@ -192,9 +194,9 @@ def _project_qkv(cfg, p, x):
         k = k + p["bk"]
         v = v + p["bv"]
     B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
-    k = k.reshape(B, S, cfg.kv_heads, cfg.hd)
-    v = v.reshape(B, S, cfg.kv_heads, cfg.hd)
+    q = split_last(q, cfg.n_heads, cfg.hd)
+    k = split_last(k, cfg.kv_heads, cfg.hd)
+    v = split_last(v, cfg.kv_heads, cfg.hd)
     return q, k, v
 
 
@@ -229,8 +231,9 @@ def attn_apply(cfg, p, x, pos, mode, cache, *, causal=True, window=None):
     q, k = _pos_embed(cfg, q, k, pos)
     new_cache = None
     if mode == "train":
-        o = L.flash_attention(q, k, v, causal=causal, window=window,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        o = heads_local(L.flash_attention, q, k, v, causal=causal,
+                        window=window, q_chunk=cfg.q_chunk,
+                        kv_chunk=cfg.kv_chunk)
     elif mode == "prefill":
         kc, vc, _ = cache
         if window is not None and kc.shape[1] < S:  # ring cache (local attn)
@@ -241,25 +244,27 @@ def attn_apply(cfg, p, x, pos, mode, cache, *, causal=True, window=None):
         else:
             kc[:, :S] = k
             vc[:, :S] = v
-        o = L.flash_attention(q, k, v, causal=causal, window=window,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        o = heads_local(L.flash_attention, q, k, v, causal=causal,
+                        window=window, q_chunk=cfg.q_chunk,
+                        kv_chunk=cfg.kv_chunk)
         new_cache = (kc, vc, torch.full((B,), S, dtype=torch.int32,
                                         device=x.device))
     else:  # decode
         kc, vc, clen = cache
         Smax = kc.shape[1]
         slot = (clen % Smax) if window is not None else clen
-        _write_rows(kc, slot, k[:, 0])
-        _write_rows(vc, slot, v[:, 0])
+        write_rows_local(_write_rows, kc, slot, k[:, 0])
+        write_rows_local(_write_rows, vc, slot, v[:, 0])
         if window is not None:
             # ring cache: every slot valid once warm; positions are implicit
             eff_len = torch.clamp_max(clen + 1, Smax)
-            o = L.decode_attention(q, kc, vc, eff_len, window=None)
+            o = heads_local(L.decode_attention, q, kc, vc, eff_len,
+                            window=None)
         else:
-            o = L.decode_attention(q, kc, vc, clen + 1, window=None)
+            o = heads_local(L.decode_attention, q, kc, vc, clen + 1,
+                            window=None)
         new_cache = (kc, vc, clen + 1)
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
-    return L.mm(o, p["wo"]).to(x.dtype), new_cache
+    return L.mm(merge_last(o), p["wo"]).to(x.dtype), new_cache
 
 
 def mlp_apply(cfg, p, x):
@@ -270,16 +275,43 @@ def mlp_apply(cfg, p, x):
 
 
 def moe_apply(cfg, p, x):
-    """The MoE FFN of a layer through ``layers.moe_ffn`` (the JAX
-    package's dense dispatch). Its all-to-all dispatch over an expert
-    mesh (``repro.models.moe_a2a``) needs an expert mesh the port does
-    not have (its local mesh is one device, ``launch.mesh``): ROADMAP
-    Queue 1 item 2."""
+    """The MoE FFN of a layer: the all-to-all dispatch over the active
+    context's expert mesh (``models.moe_a2a``) where JAX's rule takes it
+    (``cfg.moe_impl == "a2a"``, or ``"auto"`` with a mesh, no FSDP rule
+    and an experts rule), else the dense ``layers.moe_ffn``."""
+    from ..dist import sharding as _shr
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    y, aux = L.moe_ffn(h, p["router"], p["we1"], p["we3"], p["we2"],
-                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       dtype=cfg.cdt)
+    ctx = _shr._ACTIVE[-1] if _shr._ACTIVE else None
+    use_a2a = (cfg.moe_impl == "a2a" or
+               (cfg.moe_impl == "auto" and ctx is not None and
+                ctx.mesh is not None and ctx.rules.get("fsdp") is None and
+                ctx.rules.get("experts")))
+    if use_a2a and ctx is not None and ctx.mesh is not None:
+        from .moe_a2a import moe_ffn_a2a
+        avail = set(_shr.mesh_sizes(ctx.mesh))
+        tok = tuple(a for a in _as_tuple(ctx.rules.get("batch"))
+                    if a in avail)
+        exp = tuple(a for a in _as_tuple(ctx.rules.get("experts"))
+                    if a in avail)
+        tp = ctx.rules.get("tp")
+        y, aux = moe_ffn_a2a(h, p["router"], p["we1"], p["we3"], p["we2"],
+                             top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             dtype=cfg.cdt, mesh=ctx.mesh, token_axes=tok,
+                             expert_axes=exp,
+                             tp_axis=tp if isinstance(tp, str) else None)
+    else:
+        y, aux = L.moe_ffn(h, p["router"], p["we1"], p["we3"], p["we2"],
+                           top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           dtype=cfg.cdt)
     return y.to(x.dtype), aux
+
+
+def _as_tuple(ax):
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
 
 
 def ssm_apply(cfg, p, x, mode, cache):
@@ -359,7 +391,7 @@ def _unstack(stacked, depth=1):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    e = params["embed"][tokens]
+    e = embed_rows(params["embed"], tokens)
     return constrain(e.to(cfg.cdt), "batch", "act_seq", None)
 
 
@@ -475,15 +507,13 @@ def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
 
 
 def _cross_attn(cfg, p, x, enc_out):
-    B, S = x.shape[:2]
-    Se = enc_out.shape[1]
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q = L.mm(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = L.mm(enc_out, p["wk"]).reshape(B, Se, cfg.kv_heads, cfg.hd)
-    v = L.mm(enc_out, p["wv"]).reshape(B, Se, cfg.kv_heads, cfg.hd)
-    o = L.flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
-    return L.mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"]).to(x.dtype)
+    q = split_last(L.mm(h, p["wq"]), cfg.n_heads, cfg.hd)
+    k = split_last(L.mm(enc_out, p["wk"]), cfg.kv_heads, cfg.hd)
+    v = split_last(L.mm(enc_out, p["wv"]), cfg.kv_heads, cfg.hd)
+    o = heads_local(L.flash_attention, q, k, v, causal=False,
+                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return L.mm(merge_last(o), p["wo"]).to(x.dtype)
 
 
 def encode(cfg: ModelConfig, params, frames):
@@ -518,16 +548,14 @@ def xent_chunked(cfg, params, h, labels, chunk: int | None = None):
     chunk = min(chunk or cfg.loss_chunk, S)
     nc = -(-S // chunk)
     pad = nc * chunk - S
-    hp = F.pad(h, (0, 0, 0, pad))
-    lp = F.pad(labels, (0, pad), value=-1)
+    hp = F.pad(h, (0, 0, 0, pad)) if pad else h
+    lp = F.pad(labels, (0, pad), value=-1) if pad else labels
 
     def part(hc, lc):
         logits = _unembed(cfg, params, hc)          # (B, chunk, V) fp32
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(
-            logits, lc.clamp_min(0).long()[..., None], dim=-1)[..., 0]
+        nll = xent_rows(logits, lc.clamp_min(0).long())
         mask = (lc >= 0).float()
-        return torch.sum((logz - gold) * mask), torch.sum(mask)
+        return torch.sum(nll * mask), torch.sum(mask)
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -14,6 +14,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..dist.local_ops import place_like
 from ..tree import leaves, unflatten
 from .optimizer import Optimizer, clip_by_global_norm
 
@@ -55,7 +56,7 @@ def make_train_step(model, optimizer: Optimizer, *, accum: int = 1,
         with torch.enable_grad():
             loss = model.train_loss(unflatten(params, live), mb)
             grads = torch.autograd.grad(loss, live)
-        return loss.detach(), list(grads)
+        return loss.detach(), [place_like(g, p) for g, p in zip(grads, flat)]
 
     def train_step(state: TrainState, batch):
         params = state.params

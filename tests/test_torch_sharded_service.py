@@ -371,10 +371,21 @@ def test_launch_modes_run_on_the_cpu(mode):
 
 
 def test_hlo_launch_modes_exit_without_a_record():
+    """The JAX package's HLO-lowering modes, ``ingest`` and
+    ``analytics``: the port has no lowering, so it runs them (one batch,
+    each program) under its cost counter and writes a record with JAX's
+    keys (``tests/test_torch_dryrun_graph.py`` holds the counts to
+    JAX's)."""
     from repro_torch.launch import dryrun_graph as dg
-    for mode in ("ingest", "analytics"):
-        with pytest.raises(SystemExit, match="queued"):
-            dg.main(["--mode", mode, "--shards", "2", "--device", "cpu"])
+    small = ["--shards", "2", "--device", "cpu", "--n-per-shard", "4096",
+             "--batch-per-shard", "256"]
+    ing = dg.main(["--mode", "ingest"] + small)
+    assert ing["status"] == "ok" and ing["ops_dropped"] == 0
+    assert ing["collective_counts"]["all-to-all"] == 1
+    assert (dg.RESULTS / "torch-radixgraph-ingest__2shards.json").exists()
+    ana = dg.main(["--mode", "analytics"] + small)
+    assert ana["status"] == "ok" and set(ana["algs"]) == {"bfs", "pagerank"}
+    assert (dg.RESULTS / "torch-radixgraph-analytics__2shards.json").exists()
 
 
 if __name__ == "__main__":

@@ -200,6 +200,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.dist.sharding, repro_torch.checkpoint\n"
         "import repro_torch.data, repro_torch.launch.mesh\n"
         "import repro_torch.launch.train, repro_torch.tree\n"
+        "import repro_torch.models.moe_a2a, repro_torch.launch.costs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.dryrun_graph\n"
+        "import repro_torch.dist.local_ops, repro_torch.dist.costs_hook\n"
         "for a in repro_torch.configs.ARCH_IDS:\n"
         "    repro_torch.configs.get_arch(a)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
