@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--ingest-ops 4194304] [--mixed-ops 1048576]
                           [--analytics-edges 2097152]
-                          [--sharded-ops 1048576] [--lm-requests 32]
+                          [--sharded-ops 786432] [--lm-requests 32]
                           [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
@@ -58,13 +58,13 @@ Phases (any failure raises and the script exits non-zero):
    its base with the base's bytes), and lookup / degree / neighbors of
    4096 IDs and ``num_edges`` equal. Then ``python -m
    repro_torch.storage.crash_smoke --device cuda`` at the same state size
-   (2^18 ops in batches of 4096, group commit 8, a checkpoint every 21
+   (2^17 ops in batches of 4096, group commit 8, a checkpoint every 10
    batches): the child dies by SIGKILL, prefix and resumed stream match
    a control store;
 6. sharded path, after the main store is freed: ``make_store("sharded",
    device="cuda")`` with 4 shards on the one card (2^23 vertex rows and
    2^21 pool blocks of 16 a shard: the pools total the main path's), a
-   prefix of the main path's stream (``--sharded-ops``: 2^20 of its
+   prefix of the main path's stream (``--sharded-ops``: 3 x 2^18 of its
    5,242,880 ops, printed under ``reduced``) in ``apply`` calls of
    4096 ops, launch counters zeroed just before and read just after
    (``append``, ``compact_rows`` and ``sort_lookup`` must run; a rebuild
@@ -104,8 +104,8 @@ Phases (any failure raises and the script exits non-zero):
 8. sharded durability, on that store (the analytics' reference freed):
    a ``DurableStore`` (group commit 32; the directory under ``build/``,
    removed at the end; the phase fails first if the disk there holds
-   under 3 x the state): a full checkpoint, 2^18 mixed ops, a checkpoint
-   that must be a delta, 2^16 ops left in the WAL; recovery into a fresh
+   under 3 x the state): a full checkpoint, 2^17 mixed ops, a checkpoint
+   that must be a delta, 2^15 ops left in the WAL; recovery into a fresh
    ``make_store("sharded")`` of the same spec, launch counters zeroed just
    before (``append``, ``compact_rows`` and ``sort_lookup`` must run, no
    rebuild may go dense); every leaf (the pool's entries on owned
@@ -115,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
    checkpoint's bytes and ms by part, recovery ms by part, replay ops/s
    and launches are printed;
 9. sharded service: a ``GraphQueryService`` with durable-ack over the
-   recovered durable store: 16 write micro-batches of 4096 ops (fewer,
+   recovered durable store: 8 write micro-batches of 4096 ops (fewer,
    and ``reduced`` printed, where the time so far projects past the
    script's limit), a 4096-ID degree query every step, bfs from the hub, wcc and PageRank
    (tol 1e-4) every 4th; at the last sealed epoch every answer equals a
@@ -155,7 +155,7 @@ Phases (any failure raises and the script exits non-zero):
    checked against an independent numpy/scipy oracle; incremental
    advances over an insert-only delta of 4096 edges, each held to a
    scratch run (PageRank in L1, to the push's own guarantee); a
-   ``GraphQueryService`` run of 64 write micro-batches with degree, bfs
+   ``GraphQueryService`` run of 16 write micro-batches with degree, bfs
    and wcc queries, held to scratch at its last sealed epoch. Launch
    counters are zeroed before and read after, less the launches of the
    runs made only to time or check; the frontier kernel must have run.
@@ -266,11 +266,16 @@ Phases (any failure raises and the script exits non-zero):
    graph`` (walks over a 4,096-row ``RadixGraph`` on the card) must
    launch ``append`` and ``sort_lookup``;
 20. ``lm_dryrun`` (``repro_torch.launch.dryrun``: fake DTensors on a
-   fake process group, nothing computed on any device): three cells,
-   three subprocesses side by side after ``lm_train`` (no timed phase
-   shares the host's cores with them): internlm2-1.8b x train_4k on the
-   16 x 16 mesh, kimi-k2 x decode_32k on the 2 x 16 x 16 mesh, and
-   internlm2-1.8b on a 1 x 1 mesh at ``lm_train``'s batch and sequence.
+   fake process group, nothing computed on any device): six cells, six
+   subprocesses side by side after ``lm_train`` (no timed phase shares
+   the host's cores with them): internlm2-1.8b x train_4k on the 16 x 16
+   mesh, kimi-k2 x decode_32k on the 2 x 16 x 16 mesh, internlm2-1.8b
+   on a 1 x 1 mesh at ``lm_train``'s batch and sequence, and on the 16 x
+   16 mesh one cell a module that ``dist.local_ops`` writes per rank:
+   kimi-k2 x train_4k (the dense MoE dispatch, at 1,024 positions),
+   mamba2-1.3b x train_4k (the SSD chunk scan) and recurrentgemma-9b x
+   prefill_32k (the RG-LRU scan and the ring cache's roll, at 4,096
+   positions); each cut printed under ``reduced``.
    Each record must be ``ok`` (an op DTensor cannot place fails the
    cell: no figure is made up); kimi's must count all-to-all bytes (the
    ``moe_a2a`` dispatch); the 1 x 1 cell's argument bytes of params and
@@ -306,6 +311,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()   # every printed line's ``t_s`` counts from here
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -339,23 +345,25 @@ PR_TOL = 1e-7
 PR_ADVANCE_TOL = 1e-4
 LJ_N_MAX = 2 ** 23
 LJ_POOL_BLOCKS = 2 ** 23
-SERVICE_STEPS = 64
+SERVICE_STEPS = 16
 DELTA_EDGES = 4096
 # the main path's store: state sized for SNAP soc-LiveJournal1
 LJ_STORE = dict(device="cuda", n_max=LJ_N_MAX, expected_n=LJ_VERTICES,
                 key_bits=32, pool_blocks=LJ_POOL_BLOCKS, block_size=16)
 # the durability phase: ops applied through the durable store before the
 # delta checkpoint, ops left in the WAL only, the group commit, and the
-# crash smoke's cut stream (a checkpoint every 21 of its 64 batches)
+# crash smoke's cut stream (a checkpoint every 10 of its 32 batches)
 DURABLE_OPS = 1 << 18
 WAL_ONLY_OPS = 1 << 16
 GROUP_COMMIT = 32
-CRASH_ARGS = ["--scale", "lj", "--ops", str(1 << 18), "--batch", "4096",
+CRASH_ARGS = ["--scale", "lj", "--ops", str(1 << 17), "--batch", "4096",
               "--group-commit", "8"]
 
 
 def say(tag, **kw):
-    print(json.dumps({"phase": tag, **kw}), flush=True)
+    print(json.dumps({"phase": tag, **kw,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -1417,7 +1425,7 @@ def _ev_attr(e, *names):
     return 0.0
 
 
-def phase_profile(store, ids, torch, n_batches=16):
+def phase_profile(store, ids, torch, n_batches=8):
     """Where a steady-state batch's time goes: ``n_batches`` mixed batches
     under ``torch.profiler`` (host ops by self CPU time, device busy
     share), then one explicit rebuild and one snapshot, timed alone, and
@@ -1700,14 +1708,14 @@ def crash_smoke(args, cdir, torch):
 # take, is the least power of two over the largest shard's live edges plus
 # the analytics delta (~1.27M a shard; the phase fails if a snapshot
 # reaches it). ``query_batch`` 64 keeps k-hop's dense route to a
-# (2^23, 2 + 2) payload a shard (2^25 routed rows of 5 int64 words: 1.34 GB
+# (2^23, 2 + 2) payload a shard (2^25 routed rows of 5 int32 words: 0.67 GB
 # a shard); the degree reads ride the same chunks. Every other knob keeps
 # the JAX package's default
 # the sharded phase applies this prefix of the main path's 5,242,880-op
 # stream (printed under ``reduced``): its state keeps its size (4 shards,
-# 5.40 GB) and its first rebuilds stream (H100 run of the whole stream:
-# rebuilds after batches 127 and 241 of 256 here, 9 in its 1,280)
-SHARDED_OPS = 1 << 20
+# 5.40 GB) and its first rebuild streams (H100 runs: rebuilds after
+# batches 127 and 241 of a 2^20-op prefix, 9 in the whole stream's 1,280)
+SHARDED_OPS = 3 << 18
 SHARDED_STORE = dict(device="cuda", n_shards=4, n_per_shard=2 ** 23,
                      expected_n=LJ_VERTICES, key_bits=32,
                      pool_blocks=2 ** 21, block_size=16, k_max=256,
@@ -2115,19 +2123,19 @@ def sharded_parity(torch, device="cuda"):
         bfs_levels=int(a["bfs"].max()), khop_counts=a["khop"].tolist()[:16])
 
 
-def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None,
-                  x0=None):
+def pagerank_steps(n_vertices, present, osrc, odst, x0=None):
     """float64 power iteration with the port's dangling rule: dangling
     mass spreads uniformly over the active (present) vertices. It starts
-    uniform, or from ``x0`` (one value per vertex index)."""
+    uniform, or from ``x0`` (one value per vertex index). Yields the
+    start, then (iterate, max |change|) after each step, without end."""
     act = np.zeros(n_vertices, bool)
     act[present] = True
     n_act = float(len(present))
     deg = np.bincount(osrc, minlength=n_vertices).astype(np.float64)
     x = np.where(act, 1.0 / n_act, 0.0) if x0 is None else \
         np.where(act, x0, 0.0)
-    it = 0
-    while it < iters:
+    yield x
+    while True:
         contrib = np.where(deg > 0, x / np.maximum(deg, 1.0), 0.0)
         dangling = x[act & (deg == 0)].sum()
         inflow = np.bincount(odst, weights=contrib[osrc],
@@ -2136,10 +2144,39 @@ def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None,
                       DAMPING * (inflow + dangling / n_act), 0.0)
         ch = np.abs(nx - x).max()
         x = nx
+        yield x, ch
+
+
+def host_pagerank(n_vertices, present, osrc, odst, iters, tol=None,
+                  x0=None):
+    """``pagerank_steps`` for ``iters`` steps, or until a step changes no
+    rank by ``tol`` or more. Returns the iterate and its steps."""
+    steps = pagerank_steps(n_vertices, present, osrc, odst, x0)
+    x, it = next(steps), 0
+    while it < iters:
+        x, ch = next(steps)
         it += 1
         if tol is not None and not ch >= tol:
             break
     return x, it
+
+
+def host_pagerank_at(n_vertices, present, osrc, odst, at, tol=None,
+                     cap=100):
+    """One run of ``pagerank_steps`` from uniform: the iterates after each
+    step count in ``at``, and the step at which ``host_pagerank`` with
+    ``tol`` would stop (``cap`` if it would not before)."""
+    steps = pagerank_steps(n_vertices, present, osrc, odst)
+    next(steps)
+    kept, stop, it = {}, None, 0
+    while it < max(at) or (tol is not None and stop is None and it < cap):
+        x, ch = next(steps)
+        it += 1
+        if it in at:
+            kept[it] = x
+        if tol is not None and stop is None and not ch >= tol:
+            stop = it
+    return kept, stop or cap
 
 
 def host_oracle_checks(n_vertices, ids, present, rows, osrc, odst, ow, hub,
@@ -2190,19 +2227,18 @@ def host_oracle_checks(n_vertices, ids, present, rows, osrc, odst, ow, hub,
     if out["sssp_max_rel_err"] > 1e-5:
         raise AssertionError(f"sssp relative error {rel.max()}")
 
-    x20, _ = host_pagerank(n_vertices, present, osrc, odst, 20)
-    out["pagerank_l1"] = float(np.abs(
-        raw("pagerank").astype(np.float64) - x20[present]).sum())
     # the tolerance run against float64 over as many iterations as the
     # port ran: its float32 loop may run to its cap where float64 stops
     # earlier (the ``pagerank_float32`` line records why)
     its = results["pagerank_tol"].iters
-    xt, _ = host_pagerank(n_vertices, present, osrc, odst, its)
+    xs, out["pagerank_tol_iters_float64"] = host_pagerank_at(
+        n_vertices, present, osrc, odst, (20, its), PR_TOL)
+    x20, xt = xs[20], xs[its]
+    out["pagerank_l1"] = float(np.abs(
+        raw("pagerank").astype(np.float64) - x20[present]).sum())
     out["pagerank_tol_l1"] = float(np.abs(
         raw("pagerank_tol").astype(np.float64) - xt[present]).sum())
     out["pagerank_tol_iters"] = its
-    out["pagerank_tol_iters_float64"] = host_pagerank(
-        n_vertices, present, osrc, odst, 100, PR_TOL)[1]
     if max(out["pagerank_l1"], out["pagerank_tol_l1"]) > 1e-4:
         raise AssertionError(f"pagerank L1 distance {out}")
     out["oracle_s"] = time.perf_counter() - t0
@@ -2410,9 +2446,11 @@ def sharded_oracle_checks(n_vertices, ids, present, osrc, odst, ow, hub,
     out["sssp_max_rel_err"] = float(rel.max()) if rel.size else 0.0
     if out["sssp_max_rel_err"] > 1e-5:
         raise AssertionError(f"sharded sssp relative error {rel.max()}")
-    for key, iters in (("pagerank", 20),
-                       ("pagerank_tol", res["pagerank_tol"].iters)):
-        x, _ = host_pagerank(n_vertices, present, osrc, odst, iters)
+    at = {"pagerank": 20, "pagerank_tol": res["pagerank_tol"].iters}
+    xs, _ = host_pagerank_at(n_vertices, present, osrc, odst,
+                             tuple(at.values()))
+    for key, iters in at.items():
+        x = xs[iters]
         d = np.abs(by_vertex(res[key].value, vids) - x[present])
         dl = np.abs(by_vertex(local_pr[key], vids) - x[present])
         out[f"{key}_l1"] = float(d.sum())
@@ -2737,25 +2775,25 @@ def phase_sharded_analytics(args, torch, sh):
 # ops through the durable store before the delta checkpoint, the ops left
 # in the WAL, the 4 batches both stores take after recovery, and the
 # service's steps (analytics every 4th)
-SHARDED_DURABLE_OPS = 1 << 18
-SHARDED_WAL_ONLY_OPS = 1 << 16
+SHARDED_DURABLE_OPS = 1 << 17
+SHARDED_WAL_ONLY_OPS = 1 << 15
 RESUME_BATCHES = 4
-SHARDED_SERVICE_STEPS = 16
+SHARDED_SERVICE_STEPS = 8
 # the script's time limit: the sharded service takes fewer steps (a
 # multiple of 4, at least 4; ``reduced`` is printed) where the time spent
 # so far projects past it less a margin: in H100 runs of this script the
 # phases after the service took 0.47-0.51 of the time before it, and a
 # service step about 4 s beside 30 s of set-up and checks
 TIME_LIMIT_S = 1200
-TIME_MARGIN_S = 40
+TIME_MARGIN_S = 80
 
 
 def phase_sharded_durability(args, torch, sh):
     """The sharded phase's final store (4 shards, 5.4 GB of state) in a
     ``DurableStore`` (group commit 32, the JAX defaults; the directory
     under ``build/``, removed at the end; the phase fails first if the
-    disk there holds under 3 x the state): a full checkpoint, 2^18 mixed
-    ops, a checkpoint that must be a delta, 2^16 ops left in the WAL;
+    disk there holds under 3 x the state): a full checkpoint, 2^17 mixed
+    ops, a checkpoint that must be a delta, 2^15 ops left in the WAL;
     recovery into a fresh sharded store of the same spec, launch counters
     zeroed just before (the replay must launch ``append``,
     ``compact_rows`` and ``sort_lookup``; no rebuild may go dense); every
@@ -2942,7 +2980,7 @@ def service_steps(elapsed_s: float) -> int:
 
 def phase_sharded_service(args, torch, sh, rec, root, elapsed_s=0.0):
     """A ``GraphQueryService`` with durable-ack over the recovered durable
-    sharded store: 16 write micro-batches of 4096 ops (``service_steps``
+    sharded store: 8 write micro-batches of 4096 ops (``service_steps``
     of ``elapsed_s``, the script's time so far), a 4096-ID degree query
     every step, bfs from the hub, wcc and PageRank (tol 1e-4)
     every 4th step (one cold analytics run fits a step's read budget, so
@@ -3091,8 +3129,9 @@ def launch_mode_path(mode: str) -> str:
 def launch_mode_checks(recs) -> list:
     """The ingest and analytics records against the route buffers'
     shapes: the ingest exchange one (n_dst, batch a shard, 6) buffer of
-    words, a BFS level's (n_dst, n_cap, 3); every run's argument bytes
-    the state's bytes (``state_bytes``) / 4."""
+    words, a BFS level's (n_dst, n_cap, 3), each word 4 bytes (JAX's
+    uint32 words); every run's argument bytes the state's bytes
+    (``state_bytes``) / 4."""
     fails = []
     ing = recs["ingest"]
     want = 4 * ing["batch_per_shard"] * 6      # (n_dst, cap, 6) words
@@ -3100,6 +3139,12 @@ def launch_mode_checks(recs) -> list:
             ing["collective_counts"]["all-to-all"] != 1:
         fails.append(f"ingest all-to-all {ing['collective_elements']} "
                      f"x {ing['collective_counts']}, want {want} x 1")
+    for name, r in (("ingest", ing),
+                    ("bfs", recs["analytics"]["algs"]["bfs"])):
+        if r["collective_bytes"]["all-to-all"] != \
+                4 * r["collective_elements"]["all-to-all"]:
+            fails.append(f"{name} all-to-all {r['collective_bytes']} B, "
+                         f"want 4 a word")
     n_cap = recs["analytics"]["n_cap"]
     bfs = recs["analytics"]["algs"]["bfs"]
     levels = bfs["collective_counts"]["all-to-all"]
@@ -3583,18 +3628,6 @@ def phase_analytics(args, torch):
 
     say("pagerank_float32", card=card, tol=PR_TOL,
         **pagerank_float32_probe(snap, torch))
-
-    # eager launches of one triangle_count (a 256 x 32 loop of small ops)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        uncounted(lambda: alg.triangle_count(snap))
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    say("triangle_count_launches", card=card,
-        cuda_launches=sum(e.count for e in ka if e.key.startswith(
-            "cudaLaunchKernel")),
-        aten_ops=sum(e.count for e in ka if e.key.startswith("aten::")))
 
     checks = host_oracle_checks(LJ_VERTICES, ids, present, rows, osrc, odst,
                                 ow, hub, khop_src, results, bfs_iters=32)
@@ -4091,10 +4124,10 @@ LM_TRAIN = dict(arch="internlm2-1.8b", seq=4096, batch=4, accum=2,
                 launch_steps=2, requests=4, floor=3, gate_layers=2,
                 gate_batch=2, gate_seq=1024, graph_steps=3, fixed_s=75.0,
                 per_request_s=9.0, device="cuda")
-# the LM dry-run cells (``LM_DRYRUNS``), three processes side by side after
-# the last timed phase: ``fixed_s`` their projected seconds (the longest
-# traced in 60-80 s on the card's host)
-LM_DRYRUN = dict(arch="dryrun", requests=0, floor=0, fixed_s=100.0,
+# the LM dry-run cells (``LM_DRYRUNS``), six processes side by side after
+# the last timed phase: ``fixed_s`` their projected seconds (the phase
+# took 86.5-112.1 s on the card's hosts, the longest trace 61.9-66.9 s)
+LM_DRYRUN = dict(arch="dryrun", requests=0, floor=0, fixed_s=115.0,
                  per_request_s=0.0)
 LM_PHASES = (LM_SERVE, LM_SSM, LM_HYBRID, LM_MOE, LM_ENCDEC, LM_TRAIN,
              LM_DRYRUN)
@@ -4639,7 +4672,7 @@ def moe_a2a_serve(torch, eng, prompts, cfg, elapsed_s):
     n = A2A_SHARDS if room > A2A_SHARDS * LM_MOE["per_request_s"] + 30 \
         else 0
     if n < A2A_SHARDS:
-        say("reduced", arch=cfg.arch, phase="lm_moe_a2a_serve", requests=n,
+        say("reduced", arch=cfg.arch, of="lm_moe_a2a_serve", requests=n,
             asked=A2A_SHARDS, elapsed_s=elapsed_s)
     if not n:
         return None
@@ -5032,7 +5065,7 @@ def train_plan(spec, elapsed_s: float):
     if room < spec["floor"] * per:
         batch //= 2
     if steps < spec["requests"] or batch < spec["batch"]:
-        say("reduced", arch=spec["arch"], phase="lm_train", timed_steps=steps,
+        say("reduced", arch=spec["arch"], of="lm_train", timed_steps=steps,
             asked_steps=spec["requests"], batch=batch,
             asked_batch=spec["batch"], elapsed_s=elapsed_s)
     return steps, batch
@@ -5192,7 +5225,7 @@ def lm_train_gate(args, torch, spec):
     from repro_torch.tree import flatten_with_path, tree_map
     full = get_arch(spec["arch"]).CONFIG
     L, dev = spec["gate_layers"], spec["device"]
-    say("reduced", phase="lm_train_gate", arch=full.arch, layers=L,
+    say("reduced", of="lm_train_gate", arch=full.arch, layers=L,
         published_layers=full.layers)
     cfg = full.scaled(layers=L)
     b = next(TokenStream(cfg.vocab, spec["gate_batch"], spec["gate_seq"],
@@ -5364,7 +5397,14 @@ def phase_lm_train(args, torch, elapsed_s=0.0):
     return launches, measured
 
 
-# the LM dry-run cells: each a subprocess of ``repro_torch.launch.dryrun``
+# the LM dry-run cells: each a subprocess of ``repro_torch.launch.dryrun``;
+# one cell a module written per rank (``dist.local_ops``): the MoE dense
+# dispatch (kimi-k2 training), the SSD chunk scan (mamba2 training) and the
+# hybrid prefill (recurrentgemma: RG-LRU scan, ring cache roll). A trace
+# unrolls every layer and attention block: kimi's 61 layers are cut to one
+# 1,024-token attention block, the hybrid prefill to 4,096 positions (past
+# its 2,048 window: the ring cache is still written by a roll); each cut
+# printed under ``reduced``
 LM_DRYRUNS = {
     "train_single": ["--arch", "internlm2-1.8b", "--shape", "train_4k",
                      "--mesh", "single"],
@@ -5373,6 +5413,13 @@ LM_DRYRUNS = {
     "train_one_card": ["--arch", LM_TRAIN["arch"], "--shape", "train_4k",
                        "--mesh", "local", "--seq", str(LM_TRAIN["seq"]),
                        "--batch", str(LM_TRAIN["batch"])],
+    "moe_train_single": ["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+                         "--mesh", "single", "--seq", "1024"],
+    "ssm_train_single": ["--arch", "mamba2-1.3b", "--shape", "train_4k",
+                         "--mesh", "single"],
+    "hybrid_prefill_single": ["--arch", "recurrentgemma-9b", "--shape",
+                              "prefill_32k", "--mesh", "single", "--seq",
+                              "4096"],
 }
 
 
@@ -5395,8 +5442,17 @@ def start_lm_dryruns() -> dict:
         ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     logs = os.path.join(ROOT, "build", "dryrun_logs")
     os.makedirs(logs, exist_ok=True)
+    from repro_torch.configs import SHAPES
     procs = {}
     for name, argv in LM_DRYRUNS.items():
+        a = dict(zip(argv[::2], argv[1::2]))
+        _, seq, batch = SHAPES[a["--shape"]]
+        if int(a.get("--seq", seq)) < seq or int(a.get("--batch",
+                                                       batch)) < batch:
+            say("reduced", of="lm_dryrun", cell=name, arch=a["--arch"],
+                shape=a["--shape"], seq=int(a.get("--seq", seq)),
+                shape_seq=seq, batch=int(a.get("--batch", batch)),
+                shape_batch=batch)
         if os.path.exists(lm_dryrun_path(argv)):
             os.remove(lm_dryrun_path(argv))
         log = os.path.join(logs, name + ".txt")
@@ -5448,7 +5504,7 @@ def phase_lm_dryrun(procs: dict, measured: dict, elapsed_s: float):
             fails.append(f"{name}: {rec.get('error')} at "
                          f"{rec.get('failed_op')}")
     if cut:
-        say("reduced", phase="lm_dryrun", stopped=cut,
+        say("reduced", of="lm_dryrun", stopped=cut,
             elapsed_s=elapsed_s + time.perf_counter() - t0)
     kimi = recs.get("decode_multi")
     if kimi and kimi["status"] == "ok" and \

@@ -39,11 +39,14 @@ at once, the frontier kernel launched per shard on its own CSR view.
 
 Keys are ``(..., 2)`` int64 words masked to 32 bits (uint32 in the JAX
 package); the hash masks after every multiply and shift, so it matches
-JAX's wrapping uint32 arithmetic bit for bit. A routed payload is an int64
-word matrix; the weight rides as its float32 bits. Query bitmask words
-and frontier bitmaps are int32 tensors holding uint32 bit patterns (as
+JAX's wrapping uint32 arithmetic bit for bit. A routed payload is an int32
+word matrix holding JAX's uint32 words bit for bit (``_wrap32``), the
+weight riding as its float32 bits: every exchange moves JAX's bytes. The
+receiver widens the words to int64 (``_widen``) where uint32 arithmetic
+or an unsigned compare needs them. Query bitmask words and frontier
+bitmaps are int32 tensors holding uint32 bit patterns (as
 ``kernels.frontier.pack_bits`` makes them); WCC labels are int64 holding
-uint32 vertex IDs.
+uint32 vertex IDs, exchanged as int32 words.
 """
 from __future__ import annotations
 
@@ -188,7 +191,7 @@ def _all_to_all(buf: torch.Tensor) -> torch.Tensor:
     """``jax.lax.all_to_all(split_axis=0, concat_axis=0)`` over the shard
     axis: (n_src, n_dst, ...) -> (n_dst, n_src, ...). Counted per shard
     (``launch.costs``): each shard sends and receives ``buf.numel() /
-    n_src`` words (int64 here, where JAX's are uint32)."""
+    n_src`` words (int32 holding JAX's uint32 words, or float32)."""
     note_collective("all-to-all", buf.numel() // buf.shape[0],
                     buf.element_size())
     return buf.transpose(0, 1).contiguous()
@@ -216,7 +219,7 @@ def _route_dense(owner, mask, payload, n: int, cap: int):
     trailing column. Returns per receiver (rows (n, n*cap, C), valid)."""
     S, _, C = payload.shape
     slot, ok = _bucket_slots(owner, mask, cap)
-    p = torch.cat([payload, ok.to(I64)[..., None]], dim=2)
+    p = torch.cat([payload, ok.to(payload.dtype)[..., None]], dim=2)
     buf = _scatter_rows(p, torch.where(ok, slot, n * cap), n * cap, 0)
     r = _all_to_all(buf.reshape(S, n, cap, C + 1)).reshape(n, S * cap, C + 1)
     return r[..., :C], r[..., C] == 1
@@ -253,21 +256,24 @@ def _route(owner, mask, payload, n: int, cap: int, budget: Optional[int]):
 
 
 def _f32_bits(w: torch.Tensor) -> torch.Tensor:
-    """float32 -> its bits as an int64 word in [0, 2^32)."""
-    return w.contiguous().view(I32).to(I64) & _M32
+    """float32 -> its bits as an int32 word."""
+    return w.contiguous().view(I32)
 
 
 def _bits_f32(x: torch.Tensor) -> torch.Tensor:
-    """An int64 word in [0, 2^32) -> the float32 with those bits."""
-    x = x & _M32
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(I32).view(
-        torch.float32)
+    """An int32 word -> the float32 with its bits."""
+    return x.contiguous().view(torch.float32)
 
 
 def _wrap32(v: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 holding the same bit pattern."""
     v = v & _M32
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(I32)
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int64 in [0, 2^32) (the uint32 value)."""
+    return x.to(I64) & _M32
 
 
 def _pack_qbits(b: torch.Tensor) -> torch.Tensor:
@@ -337,11 +343,12 @@ def _make_shard_batch_apply(sspec: SortSpec, pspec: ep.PoolSpec, n: int,
         cap = max(1, int(round(Bl * capacity_factor)))
         owner = shard_of_keys(sk, n)
         if route_budget is not None:
-            payload = torch.stack([sk[..., 0], sk[..., 1], dk[..., 0],
-                                   dk[..., 1], _f32_bits(w)], dim=-1)
+            payload = torch.cat([_wrap32(sk), _wrap32(dk),
+                                 _f32_bits(w)[..., None]], dim=-1)
             rows, valid = _route(owner, mask, payload, n, Bl, route_budget)
-            return _apply_rows(sspec, pspec, state, rows[..., 0:2],
-                               rows[..., 2:4], _bits_f32(rows[..., 4]), valid)
+            return _apply_rows(sspec, pspec, state, _widen(rows[..., 0:2]),
+                               _widen(rows[..., 2:4]),
+                               _bits_f32(rows[..., 4]), valid)
         slot, ok = _bucket_slots(owner, mask, cap)
         route_drop = (mask & ~ok).to(I32).sum(dim=1, dtype=I32)
         NC = n * cap
@@ -353,15 +360,15 @@ def _make_shard_batch_apply(sspec: SortSpec, pspec: ep.PoolSpec, n: int,
                                ).reshape((n, NC) + x.shape[2:])
 
         if pack:
-            payload = torch.stack([sk[..., 0], sk[..., 1], dk[..., 0],
-                                   dk[..., 1], _f32_bits(w), ok.to(I64)],
-                                  dim=-1)                 # (n, Bl, 6)
+            payload = torch.cat([_wrap32(sk), _wrap32(dk),
+                                 _f32_bits(w)[..., None],
+                                 ok.to(I32)[..., None]], dim=-1)  # (n, Bl, 6)
             r = xch(payload, 0)
-            rsk, rdk = r[..., 0:2], r[..., 2:4]
+            rsk, rdk = _widen(r[..., 0:2]), _widen(r[..., 2:4])
             rw, rmask = _bits_f32(r[..., 4]), r[..., 5] == 1
         else:
-            rsk, rdk, rw = xch(sk, 0), xch(dk, 0), xch(w, 0.0)
-            rmask = xch(ok.to(I64), 0) == 1
+            rsk, rdk = _widen(xch(_wrap32(sk), 0)), _widen(xch(_wrap32(dk), 0))
+            rw, rmask = xch(w, 0.0), xch(ok.to(I32), 0) == 1
         state, dropped = _apply_rows(sspec, pspec, state, rsk, rdk, rw,
                                      rmask)
         return state, dropped + route_drop
@@ -467,7 +474,8 @@ def make_sync_vertices(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
                 lo, hi, dtype=I32, device=rowlive.device)[None, :] >=
                 prev_rows.to(I32)[:, None])
         owner = shard_of_keys(ids, n)
-        rows, valid = _route(owner, rowlive, ids.to(I64), n, n_cap, budget)
+        rows, valid = _route(owner, rowlive, _wrap32(ids), n, n_cap, budget)
+        rows = _widen(rows)
         for s in range(n):
             view = shard_view(state, s)
             st, vt_s, _, _ = vt_mod.ensure_vertices(
@@ -539,8 +547,9 @@ def make_khop_counts(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
         owner = shard_of_keys(qk, n)
         slot, _ = _bucket_slots(owner, torch.ones_like(owner, dtype=bool),
                                 Ql)
-        buf = _scatter_rows(qk, slot, n * Ql, 0)
-        recv = _all_to_all(buf.reshape(n, n, Ql, 2)).reshape(n, n * Ql, 2)
+        buf = _scatter_rows(_wrap32(qk), slot, n * Ql, 0)
+        recv = _widen(_all_to_all(buf.reshape(n, n, Ql, 2))).reshape(
+            n, n * Ql, 2)
         # unrouted slots hold key 0: their answers are never read back
         cnt = torch.stack([rg.step_degree_counts(
             sspec, pspec, shard_view(state, s), recv[s], read_ts=read_ts)
@@ -566,12 +575,12 @@ def make_khop_counts(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
         qk = query_keys.reshape(n, Ql, 2).to(I64)
         qowner = shard_of_keys(qk, n)
         idx = torch.arange(Ql, dtype=I32, device=dev)
-        qpay = torch.cat([qk, torch.ones((n, Ql, 1), dtype=I64,
-                                         device=dev)], dim=2)
+        qpay = torch.cat([_wrap32(qk), torch.ones((n, Ql, 1), dtype=I32,
+                                                  device=dev)], dim=2)
         buf = _scatter_rows(qpay, qowner * Ql + idx, Qtot, 0)
         recv = _all_to_all(buf.reshape(n, n, Ql, 3)).reshape(n, Qtot, 3)
         roff = torch.where(recv[..., 2] == 1,
-                           _lookup(sspec, state, recv[..., 0:2]), -1)
+                           _lookup(sspec, state, _widen(recv[..., 0:2])), -1)
         visited = torch.zeros((n * Qtot, VW + 1), dtype=I64, device=dev)
         one = torch.ones((), dtype=I64, device=dev)
         visited.scatter_(1, torch.where(roff >= 0, roff >> 5, VW).to(
@@ -580,16 +589,16 @@ def make_khop_counts(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
         visited = _wrap32(visited[:, :VW]).reshape(n, Qtot, VW)
         frontier = visited
         none = torch.zeros((VW,), dtype=I32, device=dev)
-        ids = state.vt.ids.to(I64)
+        ids = _wrap32(state.vt.ids)
         bit = [_wrap32(torch.tensor(1 << b, dtype=I64)).to(dev)
                for b in range(32)]
 
         def mark(rows, valid):
             """Owner rows hit by each query: (n, n_cap, QW) int32 words."""
-            ro = _lookup(sspec, state, rows[..., 0:2])
+            ro = _lookup(sspec, state, _widen(rows[..., 0:2]))
             ok = valid & (ro >= 0)
             tgt = _spread(torch.where(ok, ro, n_cap), n_cap)
-            words = _wrap32(rows[..., 2:])
+            words = rows[..., 2:]
             R = rows.shape[1] // n          # one source shard's bucket
             hit = torch.zeros((n, n_cap + 1 + _DUMPS, QW), dtype=I32,
                               device=dev)
@@ -612,7 +621,7 @@ def make_khop_counts(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
                     qwords[s, :, q // 32] |= torch.where(
                         unpack_bits(e, n_cap), bit[q % 32], 0)
             mask_rows = rowlive & qwords.ne(0).any(-1)
-            payload = torch.cat([ids, qwords.to(I64) & _M32], dim=2)
+            payload = torch.cat([ids, qwords], dim=2)
             hit = mark(*_route(owner, mask_rows, payload, n, n_cap,
                                frontier_budget))
             # only queries expanded this hop can have hits
@@ -789,7 +798,7 @@ def _owner_value_route(sspec, state: GraphState, n: int, owner, rowlive,
     the count-prefixed compacted buckets when none spills, else the dense
     layout; the results are identical either way."""
     n_cap = owner.shape[1]
-    keys = state.vt.ids.to(I64)
+    keys = _wrap32(state.vt.ids)
     compact = budget is not None and not _route_overflow(owner, rowlive, n,
                                                          budget)
     if budget is not None:
@@ -805,20 +814,26 @@ def _owner_value_route(sspec, state: GraphState, n: int, owner, rowlive,
         slot, ok = _bucket_slots(owner, rowlive, n_cap)
         tgt = torch.where(ok, slot, n * stride)
     R = n * F
-    roff = _lookup(sspec, state, rows)
+    roff = _lookup(sspec, state, _widen(rows))
     rtgt = torch.where(valid & (roff >= 0), roff, n_cap).to(I64)
     tgtc = tgt.clamp(0, n * stride - 1).to(I64)
 
     def fwd(vals):
         C = vals.shape[2]
-        vbuf = _scatter_rows(vals, tgt, n * stride, 0)
+        wide = vals.dtype == I64                 # uint32 words: as int32
+        vbuf = _scatter_rows(_wrap32(vals) if wide else vals, tgt,
+                             n * stride, 0)
         r = _all_to_all(vbuf.reshape(n, n, stride, C))
         if compact:
             r = r[:, :, 1:, :]
-        return r.reshape(n, R, C)
+        r = r.reshape(n, R, C)
+        return _widen(r) if wide else r
 
     def bwd(merged):
         ans = _gather(merged, rtgt)                          # (n, R, C)
+        wide = ans.dtype == I64
+        if wide:
+            ans = _wrap32(ans)
         C = ans.shape[2]
         if compact:
             abuf = torch.zeros((n, n, stride, C), dtype=ans.dtype,
@@ -828,7 +843,8 @@ def _owner_value_route(sspec, state: GraphState, n: int, owner, rowlive,
         else:
             back = _all_to_all(ans.reshape(n, n, stride, C)).reshape(
                 n, n * stride, C)
-        return _gather(back, tgtc), ok
+        back = _gather(back, tgtc)
+        return (_widen(back) if wide else back), ok
 
     return rtgt, fwd, bwd
 
@@ -863,10 +879,10 @@ def make_bfs(sspec: SortSpec, pspec: ep.PoolSpec, n_shards: int,
         snaps, edges = _csr(sspec, pspec, m_cap, state)
         rowlive, owner, _mine = _row_meta(state, n)
         my = torch.arange(n, dtype=I32, device=dev)[:, None]
-        ids = state.vt.ids.to(I64)
+        ids = _wrap32(state.vt.ids)
 
         def mark_hits(rows, valid):
-            roff = _lookup(sspec, state, rows[..., 0:2])
+            roff = _lookup(sspec, state, _widen(rows[..., 0:2]))
             seen = valid & (roff >= 0)
             hit = torch.zeros((n, n_cap + 1 + _DUMPS), dtype=torch.bool,
                               device=dev)

@@ -15,17 +15,41 @@ tensor each is the op itself, so the card's program is unchanged.
   that head, as XLA's dynamic slice of a replicated operand;
 * :func:`write_rows_local`: a cache row write (an advanced-index store)
   on each rank's rows;
-* :func:`embed_rows`: a lookup in a table whose vocabulary is split
-  over ranks, each rank looking up the ids in its range and the partial
-  rows summed (the vocabulary-parallel embedding);
+* :func:`embed_rows`: a lookup per rank in its batch rows, in a table
+  whose vocabulary is split over ranks the ids in its range and the
+  partial rows summed (the vocabulary-parallel embedding);
 * :func:`xent_rows`: the cross-entropy of logits whose vocabulary is
   split over ranks from each rank's max, sum of exponentials and gold
   logit, three all-reduces of a value a row (DTensor would gather the
-  logits), its backward local (the vocabulary-parallel loss).
+  logits), its backward local (the vocabulary-parallel loss);
+* :func:`moe_dense`: the dense MoE dispatch over every token of the
+  batch (``layers.moe_ffn``: one stable sort of all pairs, one global
+  capacity), each rank routing its own tokens and ranking its pairs
+  after those of the token ranks before it (one all-gather of a count
+  an expert), the capacity buffers summed over the token ranks;
+* :func:`ssd_local`: the SSD chunk scan and its decode step on each
+  rank's batch rows and heads;
+* :func:`rglru_local`: the RG-LRU scan and step on each rank's batch
+  rows and channels;
+* :func:`roll_local`: a roll along a dim that each rank holds whole
+  (the local-attention ring cache);
+* :func:`layer_of` / :func:`set_layer`: a layer's view of a stacked
+  cache leaf read and written back where the layer dims are split over
+  ranks (JAX's cache rule splits a recurrent state's leading dim: each
+  rank holds some layers), the owner's block summed to every rank and
+  the new state gathered to the owner;
+* :func:`reduced`, :func:`mean_last`: a partial sum reduced before a
+  norm reads its rows (the all-reduce of a row-parallel projection added
+  to the residual), and a norm's mean over a row split over ranks, an
+  all-reduce of each rank's sum (DTensor would reduce-scatter either
+  onto the sequence, and its own matmul cannot take the strided shard
+  that a later flatten makes of it).
 
 :func:`place_like` gives a gradient its parameter's placements (a
 reduce-scatter of a partial sum), as the JAX train step gives the
-gradients the parameters' shardings.
+gradients the parameters' shardings; :func:`grad_placed` does so for
+each use of a parameter used twice. Batch rows are the active rules'
+``batch`` axis (``dist.sharding``).
 
 A rank's coordinate comes from ``DeviceMesh.get_coordinate()``: the dry
 run traces rank 0, which stands for every rank.
@@ -37,8 +61,10 @@ import math
 import torch
 
 __all__ = ["is_dtensor", "split_last", "merge_last", "heads_local",
-           "write_rows_local",
-           "embed_rows", "xent_rows", "place_like"]
+           "write_rows_local", "embed_rows", "xent_rows", "moe_dense",
+           "ssd_local", "rglru_local", "roll_local", "layer_of",
+           "set_layer", "reduced", "mean_last", "grad_placed",
+           "place_like"]
 
 
 def is_dtensor(x) -> bool:
@@ -57,6 +83,55 @@ def _keep(t, dims):
     """``t``'s placements with only its shards of tensor ``dims`` kept."""
     from torch.distributed.tensor import Replicate
     return [p if _sdim(p, t) in dims else Replicate() for p in t.placements]
+
+
+def _dims_of(t, dim: int):
+    """The mesh dims over which ``t`` shards tensor dim ``dim`` (none for
+    a plain tensor)."""
+    if not is_dtensor(t):
+        return []
+    return [i for i, p in enumerate(t.placements)
+            if _sdim(p, t) == dim % t.dim()]
+
+
+def _batch_dims(x):
+    """The mesh dims that split ``x``'s leading (batch) dim: those of the
+    active rules' ``batch`` axis on ``x``'s mesh (``dist.sharding``), or
+    with no rules for it, those ``x`` is split over now. The rules, not
+    ``x``'s placement: DTensor may have moved an activation's batch
+    shards elsewhere, and a per-rank op would then run the whole batch
+    on every rank."""
+    from . import sharding as shr
+    mesh = x.device_mesh
+    if shr._ACTIVE and shr._ACTIVE[-1].mesh == mesh:
+        entry = shr.spec_for(x.shape[:1], ("batch",), shr._ACTIVE[-1].rules,
+                             mesh)[0]
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        return [list(mesh.mesh_dim_names).index(a) for a in axes]
+    return _dims_of(x, 0)
+
+
+def _spec(mesh, *parts):
+    """Placements over ``mesh``: each (placement, mesh dims) of ``parts``
+    on its dims, ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate
+    out = [Replicate()] * mesh.ndim
+    for p, dims in parts:
+        for i in dims:
+            out[i] = p
+    return out
+
+
+def _per_rank(fn, args, ins, grads, outs, mesh):
+    """``fn(*args)`` under ``local_map``: ``ins`` / ``grads`` the
+    placements of the arguments and their gradients (None for a plain
+    tensor), ``outs`` those of the results."""
+    from torch.distributed.tensor.experimental import local_map
+    ins = tuple(p if is_dtensor(a) else None for a, p in zip(args, ins))
+    grads = tuple(p if is_dtensor(a) else None for a, p in zip(args, grads))
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def _rank_along(mesh, mesh_dims) -> int:
@@ -88,6 +163,13 @@ def merge_last(x):
     keeps the placements the forward had."""
     y = x.flatten(-2)
     return _GradAs.apply(y) if is_dtensor(y) else y
+
+
+def grad_placed(t):
+    """``t``; a DTensor's gradient is redistributed to ``t``'s placements,
+    so that the gradients of a parameter's several uses (a tied
+    embedding's lookup and unembedding) meet in one placement."""
+    return _GradAs.apply(t) if is_dtensor(t) else t
 
 
 class _GradAs(torch.autograd.Function):
@@ -171,14 +253,16 @@ def write_rows_local(fn, c, slot, new):
 
 
 def embed_rows(table, ids):
-    """``table[ids]`` (table (V, d)); on a DTensor table whose vocabulary
-    is split, each rank looks up the ids in its range and the rows are
-    summed over those ranks (one all-reduce); the backward is local."""
-    if not is_dtensor(table) or not any(
-            _sdim(p, table) == 0 for p in table.placements):
+    """``table[ids]`` (table (V, d)); on a DTensor table, each rank looks
+    up its rows of the batch in its rows of the table, gathered over the
+    ranks that split d: where the vocabulary is split, in its range of
+    ids, the rows then summed over those ranks (one all-reduce); the
+    backward is local."""
+    if not is_dtensor(table):
         return table[ids]
     from torch.distributed.tensor import DTensor, Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
+    table = grad_placed(table)
     mesh = table.device_mesh
     tp = _keep(table, (0,))
     vd = [i for i, p in enumerate(tp) if p.is_shard()]
@@ -285,6 +369,297 @@ class _VocabXent(torch.autograd.Function):
         d.scatter_add_(-1, local[..., None],
                        -inside[..., None].to(d.dtype))
         return d * grad[..., None], None, None, None
+
+
+def _all_gather(t, groups):
+    """``t`` of every rank of ``groups`` (mesh dims, outermost first)
+    stacked in row-major rank order: (n, *t.shape)."""
+    import torch.distributed._functional_collectives as funcol
+    t = t[None]
+    for g in reversed(groups):
+        t = funcol.wait_tensor(funcol.all_gather_tensor(t, 0, g))
+    return t
+
+
+class _ScatterSum(torch.autograd.Function):
+    """The sum of each rank's ``t`` over ``groups``, each rank keeping its
+    block of dim 0 (a reduce-scatter over each group, outermost first:
+    DTensor's ``Shard(0)`` over those mesh dims); the backward gathers
+    the gradient's blocks."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        import torch.distributed._functional_collectives as funcol
+        ctx.groups = groups
+        for g in groups:
+            t = funcol.wait_tensor(funcol.reduce_scatter_tensor(t, "sum", 0,
+                                                                g))
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.groups).flatten(0, 1), None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of each rank's ``t`` over ``groups``, replicated; the
+    gradient (replicated) goes back to every rank's part unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        return _all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GradSum(torch.autograd.Function):
+    """Identity; the gradient is summed over ``groups`` (the ranks that
+    use the same input for different parts of the output)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, "sum", ctx.groups), None
+
+
+def moe_dense(x, router_w, w1, w3, w2, *, top_k: int,
+              capacity_factor: float, dtype):
+    """``layers.moe_ffn`` (x (B, S, d) -> (y, aux)). On a DTensor whose
+    batch is split over token ranks, JAX's dispatch over all ``T = B *
+    S`` tokens, per rank:
+
+    * the rank routes its own tokens (``layers.moe_route``: top-k, the
+      stable sort of its pairs by expert, the ``cummax`` ranks) and adds
+      to each pair's rank the count of its expert's pairs on the token
+      ranks before it (one all-gather of an (E,) count a rank: with the
+      batch split in order, the rank in the stable sort of all T * k
+      pairs), so ``keep`` and the drops under the global capacity ``C =
+      ceil(T * k / E * cf)`` are JAX's pair for pair;
+    * it writes its kept pairs into the (E, C, d) buffers, summed over
+      the token ranks (every slot has one writer), each token rank
+      keeping E / n experts' buffers where n divides E (a
+      reduce-scatter; else an all-reduce, every rank with all E);
+    * the experts run on DTensors (``layers.moe_experts``), so a rank
+      runs only its experts' slots;
+    * each rank combines its own pairs from the replicated outputs;
+    * the load-balance loss from the router probabilities and picks
+      summed over the token ranks.
+
+    The collectives are the port's plan, not XLA's."""
+    from ..models import layers as L
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, dtype=dtype)
+    if not is_dtensor(x):
+        return L.moe_ffn(x, router_w, w1, w3, w2, **kw)
+    from torch.distributed.tensor import Partial, Shard
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = router_w.shape[1]
+    T = B * S
+    C = L.moe_capacity(T, top_k, E, capacity_factor)
+    tok = _batch_dims(x)
+    groups = [mesh.get_group(i) for i in tok if mesh.size(i) > 1]
+    first = _rank_along(mesh, tok)
+    xp = _spec(mesh, (Shard(0), tok))       # x, and each rank's pairs
+    rep = _spec(mesh)
+    part = _spec(mesh, (Partial(), tok))
+    n = math.prod(mesh.size(i) for i in tok)
+    split = n > 1 and E % n == 0
+    bp = xp if split else rep               # the capacity buffers
+
+    def offsets(flat_e):
+        cnt = torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device)
+        cnt.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        return _all_gather(cnt, groups)[:first].sum(0)
+
+    def route(xl, rw):
+        xf = xl.reshape(-1, d)
+        logits = L.mm(L.up32(xf), L.up32(rw))
+        r = L.moe_route(logits, top_k, C, offsets if groups else None)
+        buf = L.moe_dispatch(xf, r, E, C, dtype)
+        pe = torch.softmax(logits, dim=-1).sum(dim=0)
+        hits = torch.zeros(E, dtype=pe.dtype, device=xl.device)
+        hits.scatter_add_(0, r["gidx"].reshape(-1), torch.ones(
+            r["gidx"].numel(), dtype=pe.dtype, device=xl.device))
+        if groups:
+            buf = (_ScatterSum if split else _SumOver).apply(buf, groups)
+            pe = _SumOver.apply(pe, groups)
+            hits = _all_reduce(hits, "sum", groups)
+        fe = hits / torch.clamp_min(hits.sum(), 1.0)
+        aux = E * torch.sum(pe / T * fe)
+        return buf, r["sg"], r["slot"], r["keep"], r["stt"], aux
+
+    buf, *pairs, aux = _per_rank(
+        route, (x, router_w), (xp, rep), (xp, part),
+        (bp, xp, xp, xp, xp, rep), mesh)
+    y = L.moe_experts(buf, w1, w3, w2, dtype)
+
+    def combine(yl, sg, slot, keep, stt):
+        r = dict(sg=sg, slot=slot, keep=keep, stt=stt)
+        out = L.moe_combine(yl.reshape(E * C, d), r, sg.shape[0] // top_k,
+                            dtype)
+        return out.reshape(-1, S, d)
+
+    out = _per_rank(combine, (y, *pairs), (rep, xp, xp, xp, xp),
+                    (part, xp, xp, xp, xp), xp, mesh)
+    return out, aux
+
+
+def ssd_local(fn, x, dt, A, B_, C_, D, *state, **kw):
+    """``fn(x, dt, A, B_, C_, D, *state, **kw)``, an SSD scan or step of
+    ``models.ssm`` (x (B, S, H * P), dt (B, S, H), A / D (H,), B_ / C_
+    (B, S, N), ``state`` the (B, H, P, N) recurrent state -> (y like x,
+    the state)), per rank on DTensors: on its batch rows (x's batch
+    shards) and its heads (A's shards), each head with its P channels
+    of x (the heads split x's last dim as they split H). The chunks and
+    the order of the sums are the plain program's. B_ and C_, shared by
+    the heads, get their gradients summed over the head ranks (an
+    all-reduce; DTensor would reduce-scatter a partial sum onto the
+    sequence, a placement its backward matmuls cannot take)."""
+    if not is_dtensor(x):
+        return fn(x, dt, A, B_, C_, D, *state, **kw)
+    from torch.distributed.tensor import Partial, Shard
+    mesh = x.device_mesh
+    bd = _batch_dims(x)
+    hd = [i for i in _dims_of(A, 0) if i not in bd]
+    xp = _spec(mesh, (Shard(0), bd), (Shard(2), hd))      # x, dt
+    hp = _spec(mesh, (Shard(0), hd))                      # A, D
+    hg = _spec(mesh, (Partial(), bd), (Shard(0), hd))
+    np_ = _spec(mesh, (Shard(0), bd))                     # B_, C_
+    sp = _spec(mesh, (Shard(0), bd), (Shard(1), hd))      # the state
+    groups = [mesh.get_group(i) for i in hd if mesh.size(i) > 1]
+
+    def local(x, dt, A, B_, C_, *rest):
+        if groups:
+            B_, C_ = _GradSum.apply(B_, groups), _GradSum.apply(C_, groups)
+        return fn(x, dt, A, B_, C_, *rest, **kw)
+
+    return _per_rank(local, (x, dt, A, B_, C_, D, *state),
+                     (xp, xp, hp, np_, np_, hp) + (sp,) * len(state),
+                     (xp, xp, hg, np_, np_, hg) + (sp,) * len(state),
+                     (xp, sp), mesh)
+
+
+def rglru_local(fn, x, r, i, lam, *state):
+    """``fn(x, r, i, lam, *state)``, the RG-LRU scan or step of
+    ``models.rglru`` (x / r / i (B, ..., D), lam (D,), ``state`` (B, D)
+    -> (y like x, the (B, D) state)), per rank on DTensors: on its batch
+    rows and its channels (lam's shards). The recurrence is elementwise
+    over (B, D), so the ranks exchange nothing; ``r`` and ``i``, partial
+    sums of a projection over the channel ranks, are reduce-scattered
+    onto the channels."""
+    if not is_dtensor(x):
+        return fn(x, r, i, lam, *state)
+    from torch.distributed.tensor import Partial, Shard
+    mesh = x.device_mesh
+    bd = _batch_dims(x)
+    cd = [k for k in _dims_of(lam, 0) if k not in bd]
+    xp = _spec(mesh, (Shard(0), bd), (Shard(x.dim() - 1), cd))
+    lp = _spec(mesh, (Shard(0), cd))
+    lg = _spec(mesh, (Partial(), bd), (Shard(0), cd))
+    sp = _spec(mesh, (Shard(0), bd), (Shard(1), cd))
+    return _per_rank(fn, (x, r, i, lam, *state),
+                     (xp, xp, xp, lp) + (sp,) * len(state),
+                     (xp, xp, xp, lg) + (sp,) * len(state), (xp, sp), mesh)
+
+
+def roll_local(t, shift: int, dim: int):
+    """``torch.roll(t, shift, dim)``; a DTensor rolls each rank's shard,
+    ``dim`` whole on every rank."""
+    if not is_dtensor(t):
+        return torch.roll(t, shift, dims=dim)
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if _sdim(p, t) == dim % t.dim() else p
+          for p in t.placements]
+    return _per_rank(lambda a: torch.roll(a, shift, dims=dim), (t,),
+                     (pl,), (pl,), pl, t.device_mesh)
+
+
+def _layer_split(t, idx):
+    """For ``t[idx]`` (``idx`` a tuple over t's leading dims): the mesh
+    dims that split those dims (each group of a dim, outermost first),
+    whether this rank holds the layer, and its index in the local
+    block."""
+    mesh = t.device_mesh
+    dims, mine, local = [], True, []
+    for d, i in enumerate(idx):
+        md = _dims_of(t, d)
+        n = t.shape[d] // math.prod(mesh.size(k) for k in md)
+        mine = mine and _rank_along(mesh, md) == i // n
+        dims += md
+        local.append(i % n)
+    return dims, mine, tuple(local)
+
+
+def _rest(t, k: int, split):
+    """``t``'s placements for ``t[idx]`` over its first ``k`` dims: the
+    shards of later dims moved down by ``k``, ``Replicate()`` on the mesh
+    dims in ``split`` (those of the indexed dims)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if i in split else
+            Shard(_sdim(p, t) - k) if p.is_shard() else p
+            for i, p in enumerate(t.placements)]
+
+
+def layer_of(t, idx):
+    """``t[idx]``, a view where ``t`` holds the layer whole; on a DTensor
+    whose indexed dims are split, each rank's copy of the layer: the
+    holder's block summed with zeros from the others (an all-reduce)."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if not is_dtensor(t) or not any(_dims_of(t, d)
+                                    for d in range(len(idx))):
+        return t[idx]
+    from torch.distributed.tensor import DTensor
+    mesh = t.device_mesh
+    split, mine, li = _layer_split(t, idx)
+    blk = t.to_local()[li]
+    if not mine:
+        blk = torch.zeros_like(blk)
+    blk = _all_reduce(blk, "sum", [mesh.get_group(i) for i in split])
+    shape = t.shape[len(idx):]
+    return DTensor.from_local(blk, mesh, _rest(t, len(idx), split),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def set_layer(t, idx, new):
+    """``t[idx].copy_(new)``; on a DTensor whose indexed dims are split,
+    ``new`` is placed as the layer's block and its holder writes it."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if not is_dtensor(t) or not any(_dims_of(t, d)
+                                    for d in range(len(idx))):
+        t[idx].copy_(new)
+        return
+    split, mine, li = _layer_split(t, idx)
+    new = new.redistribute(t.device_mesh, _rest(t, len(idx), split))
+    if mine:
+        t.to_local()[li].copy_(new.to_local())
+
+
+def reduced(x):
+    """``x``; a DTensor that is a partial sum over some mesh dims is
+    summed over them first (an all-reduce, Partial -> Replicate)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def mean_last(x):
+    """``x.mean(-1, keepdim=True)``; on a DTensor, the sum over the last
+    dim reduced over the ranks that split it (``reduced``), then divided
+    by its length (a reduced mean would leave a partial average, which
+    the backward cannot meet with a partial sum)."""
+    if not is_dtensor(x):
+        return torch.mean(x, dim=-1, keepdim=True)
+    return reduced(torch.sum(x, dim=-1, keepdim=True)) / x.shape[-1]
 
 
 def place_like(t, ref):

@@ -21,8 +21,8 @@ The JAX package's ingest and analytics modes lower each program to XLA
 HLO on placeholder devices and read its cost; the port has no lowering,
 so these modes run the program once at the JAX modes' per-shard sizes
 and count what it ran (``launch.costs``): FLOPs and bytes of its aten
-ops divided by the shard count, each exchange per shard (elements beside
-bytes: the port's words are int64 where JAX's are uint32), only the
+ops divided by the shard count, each exchange per shard (elements and
+bytes: the port's int32 words hold JAX's uint32 ones), only the
 branch taken and each loop trip made (``collective_branch_rule``
 ``executed``), and the kernels' launches (``launch_counts``).
 ``memory.argument_size_in_bytes`` is the state's bytes a shard; the op

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.local_ops import mean_last, reduced
+
 NEG_INF = -1e30        # the JAX masks' fill
 
 
@@ -91,9 +93,12 @@ def up32(x):
 def rmsnorm(x, g, eps=1e-6):
     """Statistics in float32 (``up32``), products in ``x``'s dtype, in this
     order: ``x * r * g`` (a bfloat16 run drifts from the JAX one
-    otherwise)."""
+    otherwise). On DTensors a partial sum is reduced first
+    (``dist.local_ops.reduced``), and the mean of a row split over ranks
+    is an all-reduce of one sum a row (``dist.local_ops.mean_last``)."""
+    x = reduced(x)
     x32 = up32(x)
-    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    r = torch.rsqrt(mean_last(x32 * x32) + eps)
     return x * r.to(x.dtype) * g.to(x.dtype)
 
 
@@ -237,6 +242,7 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      window: Optional[int] = None):
     """Single-token decode: q (B, 1, Hq, Dh); caches (B, Smax, Hkv, Dh).
+    Scores, softmax and sum in float32 (``up32``).
 
     cache_len: (B,) valid prefix length (the new token's position)."""
     B, _, Hq, Dh = q.shape
@@ -248,10 +254,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if window is not None:
         mask = mask & (pos[None, :] > cache_len[:, None] - window)
     qh = q[:, 0].reshape(B, Hkv, G, Dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k_cache.float()) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", up32(qh), up32(k_cache)) * scale
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    o = torch.einsum("bkgs,bskd->bkgd", p, up32(v_cache))
     return o.reshape(B, 1, Hq, Dh).to(q.dtype)
 
 
@@ -266,7 +272,7 @@ def moe_capacity(T: int, top_k: int, E: int, capacity_factor: float) -> int:
     return max(1, int(np.ceil(T * top_k / E * capacity_factor)))
 
 
-def moe_route(logits, top_k: int, C: int):
+def moe_route(logits, top_k: int, C: int, offsets=None):
     """The dispatch of ``moe_ffn`` from router ``logits`` (..., T, E)
     float32 (leading dims: independent token groups, such as the shards
     of ``models.moe_a2a``): ``lax.top_k`` (a stable descending sort: a
@@ -275,6 +281,12 @@ def moe_route(logits, top_k: int, C: int):
     rank among its expert's pairs (a segmented iota via ``cummax``), and
     its slot ``e * C + rank`` where the rank is under ``C`` (else the
     overflow slot ``E * C``).
+
+    ``offsets``, given, maps the pairs' experts in token order (..., T *
+    k) to a count per expert (..., E) that is added to each pair's rank:
+    the same experts' pairs on the token shards before these tokens
+    (``dist.local_ops.moe_dense``), so that the rank is the pair's rank
+    in the stable sort of all shards' pairs.
 
     Returns ``dict(gidx, gates, stt, sg, rank, keep, slot)``: gidx / gates
     (..., T, k); the rest (..., T * k) in expert order, ``stt`` the token
@@ -295,6 +307,8 @@ def moe_route(logits, top_k: int, C: int):
     first[..., 1:] = torch.logical_not(se[..., 1:] == se[..., :-1])
     seg_start = torch.cummax(torch.where(first, idx, 0), dim=-1).values
     rank = idx - seg_start
+    if offsets is not None:
+        rank = rank + torch.gather(offsets(flat_e), -1, se)
     keep = rank < C
     slot = torch.where(keep, se * C + rank, E * C)
     return dict(gidx=gidx, gates=gates, stt=stt, sg=sg, rank=rank,
@@ -353,7 +367,7 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
     E = router_w.shape[1]
     T = B * S
     xf = x.reshape(T, d)
-    logits = xf.float() @ router_w.float()
+    logits = mm(up32(xf), up32(router_w))
     C = moe_capacity(T, top_k, E, capacity_factor)
     r = moe_route(logits, top_k, C)
     y = moe_experts(moe_dispatch(xf, r, E, C, dtype), w1, w3, w2, dtype)
@@ -368,7 +382,8 @@ def _load_balance_loss(logits, gidx, E):
     probs = torch.softmax(logits, dim=-1)
     pe = probs.mean(dim=-2)
     flat = gidx.reshape(gidx.shape[:-2] + (-1,))
-    hits = torch.zeros(pe.shape, dtype=torch.float32, device=logits.device)
-    hits.scatter_add_(-1, flat, torch.ones(flat.shape, device=logits.device))
+    hits = torch.zeros(pe.shape, dtype=pe.dtype, device=logits.device)
+    hits.scatter_add_(-1, flat, torch.ones(flat.shape, dtype=pe.dtype,
+                                           device=logits.device))
     fe = hits / torch.clamp_min(hits.sum(dim=-1, keepdim=True), 1.0)
     return E * torch.sum(pe * fe, dim=-1)

@@ -24,8 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.local_ops import (embed_rows, heads_local, merge_last,
-                              split_last, write_rows_local, xent_rows)
+from ..dist.local_ops import (embed_rows, grad_placed, heads_local,
+                              layer_of, merge_last, moe_dense, rglru_local,
+                              roll_local, set_layer, split_last, ssd_local,
+                              write_rows_local, xent_rows)
 from ..dist.sharding import constrain
 from . import layers as L
 from . import rglru as RG
@@ -239,8 +241,8 @@ def attn_apply(cfg, p, x, pos, mode, cache, *, causal=True, window=None):
         if window is not None and kc.shape[1] < S:  # ring cache (local attn)
             W = kc.shape[1]
             rot = S % W
-            kc.copy_(torch.roll(k[:, -W:], rot, dims=1))
-            vc.copy_(torch.roll(v[:, -W:], rot, dims=1))
+            kc.copy_(roll_local(k[:, -W:], rot, 1))
+            vc.copy_(roll_local(v[:, -W:], rot, 1))
         else:
             kc[:, :S] = k
             vc[:, :S] = v
@@ -301,7 +303,7 @@ def moe_apply(cfg, p, x):
                              expert_axes=exp,
                              tp_axis=tp if isinstance(tp, str) else None)
     else:
-        y, aux = L.moe_ffn(h, p["router"], p["we1"], p["we3"], p["we2"],
+        y, aux = moe_dense(h, p["router"], p["we1"], p["we3"], p["we2"],
                            top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
                            dtype=cfg.cdt)
@@ -329,20 +331,17 @@ def ssm_apply(cfg, p, x, mode, cache):
     conv_cache = None if cache is None else cache.conv
     conv_out, new_conv = SSM.causal_conv(conv_in, p["conv_w"], conv_cache)
     xs, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
-    dt = L.softplus(dt.float() + p["dt_bias"][None, None])
-    A = -torch.exp(p["A_log"].float())
-    xh = xs.reshape(B, S, H, P_)
+    dt = L.softplus(L.up32(dt) + p["dt_bias"][None, None])
+    A = -torch.exp(L.up32(p["A_log"]))
     if mode == "decode":
-        y, h_new = SSM.ssd_decode_step(xh[:, 0], dt[:, 0], A, Bc[:, 0],
-                                       Cc[:, 0], p["D"], cache.h)
-        y = y[:, None]
+        y, h_new = ssd_local(SSM.ssd_step, xs, dt, A, Bc, Cc, p["D"],
+                             cache.h, P=P_)
         new_cache = SSM.SSMCache(h=h_new, conv=new_conv)
     else:
-        y, h_final = SSM.ssd_chunked(xh, dt, A, Bc, Cc, p["D"],
-                                     chunk=cfg.ssm_chunk)
+        y, h_final = ssd_local(SSM.ssd_scan, xs, dt, A, Bc, Cc, p["D"],
+                               chunk=cfg.ssm_chunk, P=P_)
         new_cache = SSM.SSMCache(h=h_final, conv=new_conv) \
             if mode == "prefill" else None
-    y = y.reshape(B, S, din)
     y = L.rmsnorm(y * L.silu(z), p["gnorm"], cfg.norm_eps)
     return L.mm(y, p["out_proj"]).to(x.dtype), new_cache
 
@@ -358,20 +357,28 @@ def rec_apply(cfg, p, x, mode, cache):
     r = L.mm(u, p["wr"])
     i = L.mm(u, p["wi"])
     if mode == "decode":
-        y, h_new = RG.rglru_step(u[:, 0], r[:, 0], i[:, 0], p["lam"],
-                                 cache[0])
+        y, h_new = rglru_local(RG.rglru_step, u[:, 0], r[:, 0], i[:, 0],
+                               p["lam"], cache[0])
         y = y[:, None]
         new_cache = (h_new, new_conv)
     else:
-        y, h_last = RG.rglru_scan(u, r, i, p["lam"])
+        y, h_last = rglru_local(RG.rglru_scan, u, r, i, p["lam"])
         new_cache = (h_last, new_conv) if mode == "prefill" else None
     return L.mm(y * g, p["wo"]).to(x.dtype), new_cache
 
 
-def _store(views, new):
-    """Write a block's new cache leaves into the cache views it read."""
-    for v, n in zip(views, new):
-        v.copy_(n)
+def _layer_state(cache, idx):
+    """The cache leaves of one layer, ``leaf[idx]`` of each
+    (``dist.local_ops.layer_of``: views, but where a DTensor splits the
+    layer dims)."""
+    return tuple(layer_of(t, idx) for t in cache)
+
+
+def _store(cache, idx, new):
+    """Write a block's new cache leaves into layer ``idx`` of the
+    cache."""
+    for t, n in zip(cache, new):
+        set_layer(t, idx, n)
 
 
 def _unstack(stacked, depth=1):
@@ -397,7 +404,8 @@ def _embed(cfg, params, tokens):
 
 def _unembed(cfg, params, h):
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = grad_placed(params["embed"]).T if cfg.tie_embeddings else \
+        params["lm_head"]
     return L.up32(h @ w.to(h.dtype))
 
 
@@ -414,10 +422,10 @@ def _attn_layer(cfg, p, x, pos, mode, cache, idx, window, causal=True):
 def _rec_layer(cfg, p, x, mode, cache, idx):
     """``rec_apply`` on the views ``(h[idx], conv[idx])``, its new state
     copied into them."""
-    c = None if cache is None else (cache[0][idx], cache[1][idx])
+    c = None if cache is None else _layer_state(cache, idx)
     y, nc = rec_apply(cfg, p, x, mode, c)
     if nc is not None:
-        _store(c, nc)
+        _store(cache, idx, nc)
     return y
 
 
@@ -448,11 +456,11 @@ def forward(cfg: ModelConfig, params, tokens, pos, mode: str, cache=None,
 
     if cfg.family == "ssm":
         def layer(i, p, x):
-            c = None if cache is None else SSM.SSMCache(cache.h[i],
-                                                        cache.conv[i])
+            c = None if cache is None else SSM.SSMCache(
+                *_layer_state(cache, i))
             y, nc = ssm_apply(cfg, p, x, mode, c)
             if nc is not None:
-                _store(c, nc)
+                _store(cache, i, nc)
             return constrain(x + y, "batch", "act_seq", None)
 
         for i, p in enumerate(_unstack(params["layers"])):

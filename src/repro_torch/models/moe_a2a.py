@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..dist.local_ops import moe_dense
 from ..dist.sharding import is_device_mesh, mesh_sizes, placements_for
 from . import layers as L
 
@@ -240,7 +241,7 @@ def moe_ffn_a2a(x, router_w, w1, w3, w2, *, top_k: int,
                     token_axes=token_axes, expert_axes=expert_axes,
                     tp_axis=tp_axis)
     if plan is None:
-        out = L.moe_ffn(x, router_w, w1, w3, w2, top_k=top_k,
+        out = moe_dense(x, router_w, w1, w3, w2, top_k=top_k,
                         capacity_factor=capacity_factor, dtype=dtype)
         return out + (None,) if return_routing else out
     tok, exp, tp = plan["tok"], plan["exp"], plan["tp"]

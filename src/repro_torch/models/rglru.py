@@ -13,15 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from .layers import softplus
+from .layers import softplus, up32
 
 C_FACTOR = 8.0
 
 
 def _gates(x, r, i, lam):
-    a = torch.exp(-C_FACTOR * softplus(lam) * torch.sigmoid(r.float()))
+    a = torch.exp(-C_FACTOR * softplus(lam) * torch.sigmoid(up32(r)))
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
-        torch.sigmoid(i.float()) * x.float())
+        torch.sigmoid(up32(i)) * up32(x))
     return a, gated
 
 
@@ -37,7 +37,7 @@ def rglru_scan(x, r, i, lam):
                         bb[:, :-shift] * aa[:, shift:] + bb[:, shift:]], 1)
         aa = torch.cat([aa[:, :shift], aa[:, :-shift] * aa[:, shift:]], 1)
         shift *= 2
-    return bb.to(x.dtype), bb[:, -1].float()
+    return bb.to(x.dtype), up32(bb[:, -1])
 
 
 def rglru_step(x, r, i, lam, h):

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import silu
+from .layers import silu, up32
 
 
 class SSMCache(NamedTuple):
@@ -26,12 +26,12 @@ class SSMCache(NamedTuple):
 def ssd_chunked(x, dt, A, B_, C_, D, chunk: int):
     """x: (B, S, H, P); dt: (B, S, H) (softplus applied); A: (H,) < 0;
     B_, C_: (B, S, N); D: (H,). Returns y (B, S, H, P) and the final state
-    (B, H, P, N), float32."""
+    (B, H, P, N), float32 (``up32``: float64 in a float64 model)."""
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     nc = -(-S // chunk)
     pad = nc * chunk - S
-    f32 = torch.float32
+    f32 = up32(x).dtype
     xc = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, chunk, H, P).to(f32)
     dtc = F.pad(dt, (0, 0, 0, pad)).reshape(Bsz, nc, chunk, H)
     Bc = F.pad(B_, (0, 0, 0, pad)).reshape(Bsz, nc, chunk, N).to(f32)
@@ -75,11 +75,28 @@ def ssd_decode_step(x, dt, A, B_, C_, D, h):
     """One-token recurrence. x: (B, H, P); dt: (B, H); B_, C_: (B, N);
     h: (B, H, P, N). Returns (y, h')."""
     dA = torch.exp(dt * A[None, :])                              # (B,H)
-    hB = torch.einsum("bh,bn,bhp->bhpn", dt, B_.float(), x.float())
+    hB = torch.einsum("bh,bn,bhp->bhpn", dt, up32(B_), up32(x))
     h = h * dA[..., None, None] + hB
-    y = torch.einsum("bn,bhpn->bhp", C_.float(), h)
-    y = y + x.float() * D[None, :, None]
+    y = torch.einsum("bn,bhpn->bhp", up32(C_), h)
+    y = y + up32(x) * D[None, :, None]
     return y.to(x.dtype), h
+
+
+def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int, P: int):
+    """``ssd_chunked`` on x (B, S, H * P), each head's P channels side by
+    side: returns y (B, S, H * P) and the final state (B, H, P, N)."""
+    B, S = x.shape[:2]
+    y, h = ssd_chunked(x.reshape(B, S, -1, P), dt, A, B_, C_, D, chunk)
+    return y.reshape(B, S, -1), h
+
+
+def ssd_step(x, dt, A, B_, C_, D, h, *, P: int):
+    """``ssd_decode_step`` on the one token of x (B, 1, H * P), dt (B, 1,
+    H), B_ / C_ (B, 1, N): returns y (B, 1, H * P) and the new state."""
+    B = x.shape[0]
+    y, h = ssd_decode_step(x[:, 0].reshape(B, -1, P), dt[:, 0], A,
+                           B_[:, 0], C_[:, 0], D, h)
+    return y.reshape(B, 1, -1), h
 
 
 def causal_conv(x, w, cache=None):
